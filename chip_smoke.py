@@ -12,6 +12,11 @@ Output: progress lines, then the card's name and power limit, a JSON
 summary, a JSON line of the kernels, and as the last line
 ``{"ok": true, "device": {...}}``.
 
+Kernel times: ``device_ms`` is the device time of one call (50 calls
+captured in a CUDA graph, replayed, divided by 50); ``call_ms`` is one
+Python call timed by CUDA events, host cost included. The kernels line's
+``ms`` is ``call_ms``.
+
 Run from the repository root:
     python3 chip_smoke.py  [--out FILE.json] [--profile FILE.txt]
 """
@@ -27,7 +32,9 @@ import numpy as np
 
 FRAMES = 30
 ADDS_BUDGET_CM = 1.5  # dense tracking budget of the JAX package's bench
-H100 = {"f32_ops": 67e12, "bytes": 3.35e12}  # non-tensor float32 peak, HBM rate
+# non-tensor float32 peak, HBM rate, and single instructions a second
+# (132 SMs x 128 lanes x 1.98 GHz): the rate of an FMA-free kernel
+H100 = {"f32_ops": 67e12, "bytes": 3.35e12, "lane_instr": 132 * 128 * 1.98e9}
 BOX_HALF = (0.06, 0.04, 0.025)  # the bench box CAD
 BOX_FACES = np.array(
     [[0, 1, 3], [0, 3, 2], [4, 6, 7], [4, 7, 5], [0, 4, 5], [0, 5, 1],
@@ -68,10 +75,9 @@ def motion_delta() -> np.ndarray:
     return d
 
 
-def median_ms(fn, reps: int = 100, warmup: int = 10) -> float:
-    """Median time of one call from CUDA events around each call."""
-    import torch
-
+def call_ms(torch, fn, reps: int = 100, warmup: int = 10) -> float:
+    """Median time of one Python call, from CUDA events around each call:
+    the host's cost of the call whenever it exceeds the device's."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -87,6 +93,36 @@ def median_ms(fn, reps: int = 100, warmup: int = 10) -> float:
     return float(np.median(times))
 
 
+def device_ms(torch, fn, launches: int = 50, reps: int = 20) -> float:
+    """Device time of one call: ``launches`` calls captured in a CUDA graph,
+    the graph replayed between two events, the median replay divided by
+    ``launches``. A replay issues no host work, so this is the time the
+    card spends, launch gaps included."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up off the capture stream
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        graph.replay()
+        e.record()
+        e.synchronize()
+        times.append(s.elapsed_time(e) / launches)
+    del graph
+    return float(np.median(times))
+
+
 def bound_ms(ops: float, nbytes: float) -> tuple[float, str]:
     t_ops, t_bytes = ops / H100["f32_ops"], nbytes / H100["bytes"]
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
@@ -96,6 +132,12 @@ def nn_bound(n: int, m: int) -> tuple[float, str]:
     # 8 float32 operations and one compare per pair; each input read once
     # (points 12 B + mask 1 B), outputs 4 + 8 + 1 B per query
     return bound_ms(9.0 * n * m, 13 * (n + m) + 13 * n)
+
+
+def nn_issue_ms(n: int, m: int) -> float:
+    """K1's ceiling without fused multiply-adds: 7 float32 instructions and
+    one minimum per pair, one instruction per lane and clock."""
+    return 8.0 * n * m / H100["lane_instr"] * 1e3
 
 
 def raster_bound(bbox, H: int, W: int) -> tuple[float, str]:
@@ -112,29 +154,16 @@ def raster_bound(bbox, H: int, W: int) -> tuple[float, str]:
     return bound_ms(20.0 * pairs, 64 * b.shape[0] + 4 * H * W)
 
 
-def check_fused_nn(torch, fnn, dev):
-    """K1 against its plain version; returns (max_abs_err, kernel ms,
-    plain ms, library ms) with the times at the main path's 4096 x 4096."""
-    g = torch.Generator(device=dev).manual_seed(1)
+def check_fused_nn(torch, fnn, dev) -> dict:
+    """K1 against its plain version on every case of ``kernel_cases``, and
+    the expected index on the tie and negative-d2 cases. Times at the main
+    path's 4096 x 4096 and at 16k x 16k."""
+    from poseestimator_tpu_torch import kernel_cases as kc
 
-    def cloud(n, scale=0.03, center=0.5):
-        return torch.randn(n, 3, device=dev, generator=g) * scale + torch.tensor(
-            [0.0, 0.0, center], device=dev)
-
-    def mask(n, p):
-        return torch.rand(n, device=dev, generator=g) < p
-
-    ones = lambda n: torch.ones(n, dtype=torch.bool, device=dev)  # noqa: E731
-    q4, d4 = cloud(4096), cloud(4096)
-    cases = {
-        "4096x4096": (q4, ones(4096), d4, ones(4096)),
-        "ragged 1000x3000": (cloud(1000, 1.0, 0.0), ones(1000), cloud(3000, 1.0, 0.0), ones(3000)),
-        "random invalid masks": (cloud(4096), mask(4096, 0.8), cloud(4096), mask(4096, 0.6)),
-        "all data invalid": (cloud(500), ones(500), cloud(2000), torch.zeros(
-            2000, dtype=torch.bool, device=dev)),
-        "16k x 16k streamed": (cloud(16384, 0.2), mask(16384, 0.95), cloud(16384, 0.2),
-                               mask(16384, 0.95)),
-    }
+    to_dev = lambda arrays: tuple(torch.from_numpy(a).to(dev) for a in arrays)  # noqa: E731
+    cases = {name: to_dev(c) for name, c in kc.nn_cases().items()}
+    expect = {"ties across split edges": kc.nn_ties()[1],
+              "negative d2 0.5 m out": kc.nn_negative_d2()[1]}
     worst = 0.0
     for name, (q, qv, d, dv) in cases.items():
         kd, ki, kf = fnn.fused_nn(q, qv, d, dv)
@@ -144,51 +173,78 @@ def check_fused_nn(torch, fnn, dev):
             fail(f"K1 {name}: {(ki != pi).sum().item()} indices differ from the plain version")
         if not torch.equal(kf, pf):
             fail(f"K1 {name}: found flags differ from the plain version")
+        if name in expect and not np.array_equal(ki.cpu().numpy(), expect[name]):
+            fail(f"K1 {name}: indices differ from the expected (lowest) ones")
         err = float((kd - pd).abs().max())
-        if err > 1e-6:
-            fail(f"K1 {name}: distance error {err} > 1e-6")
+        if err > 0.0:
+            fail(f"K1 {name}: distance error {err} > 0")
         worst = max(worst, err)
         log(f"K1 {name}: indices identical, max |d| err {err:.3g}, found {int(kf.sum())}")
     q, qv, d, dv = cases["4096x4096"]
-    ms = median_ms(lambda: fnn.fused_nn(q, qv, d, dv))
-    plain = median_ms(lambda: fnn.fused_nn_plain(q, qv, d, dv), reps=20)
-    lib = median_ms(lambda: torch.cdist(q, d).min(1), reps=50)
-    return worst, ms, plain, lib
+    out = {"max_abs_err": worst,
+           "device_ms": device_ms(torch, lambda: fnn.fused_nn(q, qv, d, dv)),
+           "call_ms": call_ms(torch, lambda: fnn.fused_nn(q, qv, d, dv)),
+           "plain_ms": call_ms(torch, lambda: fnn.fused_nn_plain(q, qv, d, dv), reps=20),
+           "library_ms": device_ms(torch, lambda: torch.cdist(q, d).min(1)),
+           "bound": nn_bound(4096, 4096), "issue_ms": nn_issue_ms(4096, 4096)}
+    # cost model at N = 4096: device time against M, t = fixed + pairs / rate
+    d16 = cases["16k x 16k invalid masks"][2]
+    t_at = {}
+    for m in (512, 1024, 2048, 4096, 8192, 16384):
+        dm, dvm = d16[:m].contiguous(), torch.ones(m, dtype=torch.bool, device=dev)
+        t_at[m] = device_ms(torch, lambda: fnn.fused_nn(q, qv, dm, dvm), 20)
+    ms_per_pair, fixed = np.polyfit([4096.0 * m for m in t_at], list(t_at.values()), 1)
+    rate = 1e3 / ms_per_pair  # pairs a second
+    one = torch.zeros(1, device=dev)
+    out["cost_model"] = {"n": 4096, "device_ms_by_m": t_at, "fixed_ms": float(fixed),
+                         "pairs_per_s": float(rate),
+                         "share_of_issue_ceiling": float(8.0 * rate / H100["lane_instr"]),
+                         "launch_floor_ms": device_ms(torch, lambda: one.zero_())}
+    q, qv, d, dv = cases["16k x 16k invalid masks"]
+    out["16384x16384"] = {"device_ms": device_ms(torch, lambda: fnn.fused_nn(q, qv, d, dv), 10),
+                          "bound_ms": nn_bound(16384, 16384)[0],
+                          "issue_ms": nn_issue_ms(16384, 16384)}
+    return out
 
 
-def check_raster(torch, rs, window_origin, mesh_v, mesh_f, T0, intr_r, win, dev):
-    """K2 against its plain version at the main path's window and at a
-    4096-face sphere over the full half-resolution frame."""
-    from poseestimator_tpu_torch.render.mesh import make_icosphere
+def check_raster(torch, rs, window_origin, mesh_v, mesh_f, T0, intr_r, win, dev) -> dict:
+    """K2 against its plain version at the main path's window and on every
+    case of ``kernel_cases``; times at the window and at the 4096-face
+    sphere over the full half-resolution frame."""
+    from poseestimator_tpu_torch import kernel_cases as kc
 
     o = window_origin(mesh_v, T0, intr_r, *win).to(torch.float32)
-    cw = rs.face_coeffs(mesh_v, mesh_f, T0, intr_r, near=0.01, origin=o)
-    sv, sf = make_icosphere(0.1, 4)
-    Ts = torch.eye(4, device=dev)
-    Ts[2, 3] = 0.45
-    cs = rs.face_coeffs(torch.from_numpy(sv).to(dev), torch.from_numpy(sf[:4096]).to(dev),
-                        Ts, intr_r, near=0.01)
-    cases = {f"bench box, {win[0]}x{win[1]} window at origin {o.tolist()}": (cw, win),
-             f"icosphere 4096 faces, {intr_r.height}x{intr_r.width} frame":
-                 (cs, (intr_r.height, intr_r.width))}
+    main = f"bench box, {win[0]}x{win[1]} window at origin {o.tolist()}"
+    cases = {main: (*rs.face_coeffs(mesh_v, mesh_f, T0, intr_r, near=0.01, origin=o), *win)}
+    for name, c in kc.raster_cases().items():
+        cases[name] = (*rs.face_coeffs(
+            torch.from_numpy(c["vertices"]).to(dev), torch.from_numpy(c["faces"]).to(dev),
+            torch.from_numpy(c["T"]).to(dev), c["intr"], near=0.01), c["H"], c["W"])
     worst, timings = 0.0, {}
-    for name, ((coef, bbox), (H, W)) in cases.items():
+    for name, (coef, bbox, H, W) in cases.items():
         izk = rs.raster(coef, bbox, H, W)
         torch.cuda.synchronize()
         izp = rs.raster_plain(coef, H, W, chunk=64)
         if not torch.equal(izk > 0, izp > 0):
             fail(f"K2 {name}: coverage differs on {((izk > 0) != (izp > 0)).sum().item()} px")
+        if not torch.equal(izk, izp):
+            fail(f"K2 {name}: max 1/z differs on {(izk != izp).sum().item()} px")
         dk, dp = rs.izmax_to_depth(izk, 0.01, 5.0), rs.izmax_to_depth(izp, 0.01, 5.0)
         err = float((dk - dp).abs().max())
-        if err > 1e-6:
-            fail(f"K2 {name}: depth error {err} m > 1e-6")
         worst = max(worst, err)
-        ms = median_ms(lambda: rs.raster(coef, bbox, H, W))
-        plain = median_ms(lambda: rs.raster_plain(coef, H, W, chunk=64), reps=20)
-        timings[name] = (ms, plain, raster_bound(bbox, H, W), int((izk > 0).sum()))
-        log(f"K2 {name}: coverage identical ({int((izk > 0).sum())} px), "
-            f"max depth err {err:.3g} m, kernel {ms:.4f} ms, plain {plain:.4f} ms")
-    return worst, timings
+        log(f"K2 {name}: {coef.shape[0]} faces, coverage and depth identical "
+            f"({int((izk > 0).sum())} px covered)")
+        if name == main or name.startswith("icosphere"):
+            timings[name] = {
+                "faces": coef.shape[0], "hw": [H, W], "covered_px": int((izk > 0).sum()),
+                "device_ms": device_ms(torch, lambda: rs.raster(coef, bbox, H, W)),
+                "call_ms": call_ms(torch, lambda: rs.raster(coef, bbox, H, W)),
+                "plain_ms": call_ms(torch, lambda: rs.raster_plain(coef, H, W, chunk=64), reps=20),
+                "bound": raster_bound(bbox, H, W)}
+            t = timings[name]
+            log(f"K2 {name}: device {t['device_ms']:.5f} ms, call {t['call_ms']:.4f} ms, "
+                f"plain {t['plain_ms']:.4f} ms, bound {t['bound'][0]:.3g} ms ({t['bound'][1]})")
+    return {"max_abs_err": worst, "main": main, "shapes": timings}
 
 
 def adds_cm(torch, pts, T_est, T_true) -> float:
@@ -285,12 +341,20 @@ def main(argv=None) -> int:
     T0[2, 3] = 0.5
 
     # 3. K1
-    k1_err, k1_ms, k1_plain, k1_lib = check_fused_nn(torch, fnn, dev)
-    log(f"K1 4096x4096: kernel {k1_ms:.4f} ms, plain {k1_plain:.4f} ms, "
-        f"library_ms (torch.cdist(q, d).min(1), TF32 off; the port never calls it) {k1_lib:.4f} ms")
+    k1 = check_fused_nn(torch, fnn, dev)
+    log(f"K1 4096x4096: device {k1['device_ms']:.5f} ms (graph replay), call {k1['call_ms']:.4f} ms, "
+        f"plain {k1['plain_ms']:.4f} ms, bound {k1['bound'][0]:.5f} ms ({k1['bound'][1]}), "
+        f"FMA-free issue ceiling {k1['issue_ms']:.5f} ms, library_ms (torch.cdist(q, d).min(1), "
+        f"TF32 off; the port never calls it) {k1['library_ms']:.5f} ms")
+    log(f"K1 16384x16384: device {k1['16384x16384']['device_ms']:.5f} ms, "
+        f"FMA-free issue ceiling {k1['16384x16384']['issue_ms']:.5f} ms")
+    cm = k1["cost_model"]
+    log(f"K1 cost at N=4096 over M=512..16384: fixed {cm['fixed_ms']:.5f} ms + pairs at "
+        f"{cm['pairs_per_s']:.4g}/s ({100 * cm['share_of_issue_ceiling']:.1f}% of the FMA-free "
+        f"issue ceiling); a 1-element fill takes {cm['launch_floor_ms']:.5f} ms")
 
     # 4. K2
-    k2_err, k2_t = check_raster(torch, rs, window_origin, mesh_v, mesh_f, T0, intr_r, win, dev)
+    k2 = check_raster(torch, rs, window_origin, mesh_v, mesh_f, T0, intr_r, win, dev)
 
     # 5. main path
     model = init_random_(YOLO11Seg(nc=5, scale="n"), torch.Generator().manual_seed(0))
@@ -348,11 +412,11 @@ def main(argv=None) -> int:
 
     # where the frame goes: the track step alone on the same inputs, and
     # the cost of one host read (the ICP loop makes one per iteration)
-    track_ms = median_ms(lambda: track_step(mesh_v, mesh_f, depths[0] > 0, depths[0], T0,
-                                            intr, 0.01, win_hw=win, generator=gen),
-                         reps=20, warmup=3)
+    track_ms = call_ms(torch, lambda: track_step(mesh_v, mesh_f, depths[0] > 0, depths[0], T0,
+                                          intr, 0.01, win_hw=win, generator=gen),
+                       reps=20, warmup=3)
     flag = torch.zeros((), device=dev)
-    read_us = median_ms(lambda: bool(flag + 1 > 0), reps=200) * 1e3
+    read_us = call_ms(torch, lambda: bool(flag + 1 > 0), reps=200) * 1e3
 
     if args.profile:
         summary_prof = profile_frames(torch, frame, color, depths, T0, gen, args.profile)
@@ -365,24 +429,30 @@ def main(argv=None) -> int:
         "icp_n_iters_mean": float(np.mean(n_iters)), "icp_n_iters": n_iters,
         "adds_mean_cm": adds_mean, "adds_max_cm": float(max(adds)),
         "k1_launches": k1_launches, "k2_launches": k2_launches,
-        "k2_cases": {k: {"ms": v[0], "plain_ms": v[1], "bound_ms": v[2][0],
-                         "bound_by": v[2][1], "covered_px": v[3]} for k, v in k2_t.items()},
     }
     log(f"track step alone: {track_ms:.3f} ms; one host read: {read_us:.1f} us")
-    (k2_main, k2_main_t), = [(k, v) for k, v in k2_t.items() if k.startswith("bench box")]
-    k1_bound = nn_bound(4096, 4096)
+    k2_main = k2["shapes"][k2["main"]]
     kernels_line = {"kernels": [
         {"name": "K1 fused_nn", "route": "cuda",
          "source": "poseestimator_tpu_torch/csrc/fused_nn.cu",
          "replaces": "poseestimator_tpu/geom3d/pallas_nn.py:30",
-         "launches": k1_launches, "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain,
-         "bound_ms": k1_bound[0], "bound_by": k1_bound[1], "library_ms": k1_lib},
+         "launches": k1_launches, "max_abs_err": k1["max_abs_err"], "ms": k1["call_ms"],
+         "device_ms": k1["device_ms"], "call_ms": k1["call_ms"], "plain_ms": k1["plain_ms"],
+         "bound_ms": k1["bound"][0], "bound_by": k1["bound"][1],
+         "issue_bound_ms": k1["issue_ms"], "library_ms": k1["library_ms"],
+         "shape": "4096x4096", "other_shapes": {"16384x16384": k1["16384x16384"]},
+         "cost_model": k1["cost_model"]},
         {"name": "K2 raster", "route": "cuda",
          "source": "poseestimator_tpu_torch/csrc/raster.cu",
          "replaces": "poseestimator_tpu/render/raster.py:134",
-         "launches": k2_launches, "max_abs_err": k2_err, "ms": k2_main_t[0],
-         "plain_ms": k2_main_t[1], "bound_ms": k2_main_t[2][0], "bound_by": k2_main_t[2][1],
-         "library_ms": None},
+         "launches": k2_launches, "max_abs_err": k2["max_abs_err"], "ms": k2_main["call_ms"],
+         "device_ms": k2_main["device_ms"], "call_ms": k2_main["call_ms"],
+         "plain_ms": k2_main["plain_ms"], "bound_ms": k2_main["bound"][0],
+         "bound_by": k2_main["bound"][1], "library_ms": None, "shape": k2["main"],
+         "other_shapes": {k: {"device_ms": v["device_ms"], "call_ms": v["call_ms"],
+                              "plain_ms": v["plain_ms"], "bound_ms": v["bound"][0],
+                              "bound_by": v["bound"][1]}
+                          for k, v in k2["shapes"].items() if k != k2["main"]}},
     ]}
     summary["kernels"] = kernels_line["kernels"]
     if args.profile:

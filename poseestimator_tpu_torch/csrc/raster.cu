@@ -6,89 +6,145 @@
 // (a, b, c) of the three normalized barycentrics, then the 1/z plane — and
 // bbox (F, 4) = (xmin, xmax, ymin, ymax) in window pixels, with the window
 // origin already folded in. Output izmax (H, W) float32: -1 where no face
-// covers the pixel.
+// covers the pixel. Both inputs must be 16-byte aligned (the wrapper sees to
+// it).
 //
 // What bounds it on an H100: with the bbox cull, the work is the pixels that
 // each face's bbox overlaps times ~20 float32 operations (four planes at two
 // mul + two add, three compares, a max); bytes are 64 per face plus 4 per
 // pixel. At the tracking window (128 x 128 px, 256 padded faces of which 12
 // are real) both bounds are far below a microsecond, so a launch is bound by
-// its fixed cost; at a 4096-face mesh over a 320 x 240 frame the operations
-// dominate.
+// its fixed cost. At a 4096-face mesh over a 320 x 240 frame the shading is
+// still small (a face covers a few pixels); what costs is culling every face
+// against every tile.
 //
-// Design: one block per 32 x 8 pixel tile, one thread per pixel (a warp is one
-// 128-byte row of the tile, so the store is coalesced). Faces are staged
-// through shared memory in chunks of CHUNK: the block copies the chunk's
-// coefficients with coalesced loads, and each thread tests one face's bbox
-// against the tile (widened by one pixel, which covers the 1e-5 barycentric
-// slack of the inside test); a chunk no face of which touches the tile is
-// skipped whole, and inside a chunk a face that misses the tile is skipped
-// by a branch that is uniform across the block. Each thread keeps its
-// pixel's max 1/z in a register. Planes are evaluated as (a*X + b*Y) + c with
-// __fmul_rn/__fadd_rn (and -fmad=false): fused multiply-adds would move the
-// coverage of pixels on shared edges away from the plain PyTorch version,
-// and coverage is held bit-identical to it.
+// Design: one warp per 8 x 8 pixel tile, so a 128 x 128 window is 256 blocks
+// and a 320 x 240 frame 1200, and no block-wide barrier is ever needed. Each
+// lane shades two horizontally adjacent pixels, which share the b*Y product
+// of every plane, and keeps a face's 12 coefficients in registers for both.
+// Faces are culled RS_STEP at a time, RS_FPL per lane:
+// * their bboxes arrive through a ring of RS_STAGES steps of cp.async copies
+//   (each lane copies and reads its own 16-byte rows), so the loads of the
+//   next steps are in flight while this one is tested;
+// * each lane tests a face's bbox against the tile widened by one pixel
+//   (which covers the 1e-5 barycentric slack of the inside test, so the cull
+//   is exact against the uncut plain version), and __ballot_sync plus a
+//   popc prefix compacts each 32 faces' hits into a list in shared memory,
+//   to which each hit lane copies its face's coefficients: only faces that
+//   touch the tile are loaded, and 32 faces with no hit cost one ballot;
+// * every lane then walks the list.
+// Planes are evaluated as (a*X + b*Y) + c with __fmul_rn/__fadd_rn (and
+// -fmad=false): fused multiply-adds would move the coverage of pixels on
+// shared edges away from the plain PyTorch version, and coverage is held
+// bit-identical to it. The max is exact in any order, so neither the cull
+// nor the compaction can change a bit.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#define RS_TW 32
-#define RS_TH 8
-#define RS_THREADS (RS_TW * RS_TH)
-#define RS_CHUNK RS_THREADS
+#define RS_T 8       // tile side in pixels
+#define RS_FPL 2     // faces each lane culls per step
+#define RS_STEP (32 * RS_FPL)
+#define RS_STAGES 4  // steps of bboxes in flight
 #define RS_EDGE_EPS 1e-5f
 
-__device__ __forceinline__ float plane(const float* c, float X, float Y) {
-    return __fadd_rn(__fadd_rn(__fmul_rn(c[0], X), __fmul_rn(c[1], Y)), c[2]);
+__device__ __forceinline__ void copy16_async(void* smem, const void* gmem) {
+    const uint32_t s = (uint32_t)__cvta_generic_to_shared(smem);
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
 }
 
-__global__ void __launch_bounds__(RS_THREADS)
+__device__ __forceinline__ void commit_async() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wait_async() {  // the oldest step has landed
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(RS_STAGES - 1) : "memory");
+}
+
+__device__ __forceinline__ float plane(float a, float b_y, float c, float X) {
+    return __fadd_rn(__fadd_rn(__fmul_rn(a, X), b_y), c);
+}
+
+__global__ void __launch_bounds__(32)
 raster_kernel(const float* __restrict__ coef, const float* __restrict__ bbox, int F,
               int H, int W, float* __restrict__ out) {
-    __shared__ float sc[RS_CHUNK * 12];
-    __shared__ uint8_t hit[RS_CHUNK];
-    const int tid = threadIdx.y * RS_TW + threadIdx.x;
-    const int x0 = blockIdx.x * RS_TW;
-    const int y0 = blockIdx.y * RS_TH;
-    const float X = (float)(x0 + threadIdx.x);
-    const float Y = (float)(y0 + threadIdx.y);
+    __shared__ __align__(16) float4 sbox[RS_STAGES][RS_FPL][32];
+    __shared__ __align__(16) float4 hits[32][3];
+    const int lane = threadIdx.x;
+    const int x0 = blockIdx.x * RS_T, y0 = blockIdx.y * RS_T;
+    const int px = x0 + 2 * (lane % (RS_T / 2)), py = y0 + lane / (RS_T / 2);
+    const float Xa = (float)px, Xb = (float)(px + 1), Y = (float)py;
     // tile bounds widened by one pixel (see the note above)
-    const float tx_lo = (float)(x0 - 1), tx_hi = (float)(x0 + RS_TW);
-    const float ty_lo = (float)(y0 - 1), ty_hi = (float)(y0 + RS_TH);
-    float izmax = -1.0f;
+    const float tx_lo = (float)(x0 - 1), tx_hi = (float)(x0 + RS_T);
+    const float ty_lo = (float)(y0 - 1), ty_hi = (float)(y0 + RS_T);
+    const unsigned below = (1u << lane) - 1u;
+    const float4* box4 = reinterpret_cast<const float4*>(bbox);
+    const float4* coef4 = reinterpret_cast<const float4*>(coef);
+    float iza = -1.0f, izb = -1.0f;
 
-    for (int base = 0; base < F; base += RS_CHUNK) {
-        const int n = min(RS_CHUNK, F - base);
-        for (int k = tid; k < n * 12; k += RS_THREADS) sc[k] = coef[base * 12 + k];
-        int h = 0;
-        if (tid < n) {
-            const float* b = bbox + 4 * (base + tid);
-            h = (b[0] <= tx_hi) && (b[1] >= tx_lo) && (b[2] <= ty_hi) && (b[3] >= ty_lo);
+    const int steps = (F + RS_STEP - 1) / RS_STEP;
+    // one commit per step, empty past the end, keeps the group count fixed
+#pragma unroll
+    for (int s = 0; s < RS_STAGES - 1; ++s) {
+#pragma unroll
+        for (int j = 0; j < RS_FPL; ++j) {
+            const int f = s * RS_STEP + 32 * j + lane;
+            if (f < F) copy16_async(&sbox[s][j][lane], box4 + f);
         }
-        hit[tid] = (uint8_t)h;
-        if (!__syncthreads_or(h)) continue;  // no face of this chunk touches the tile
-        for (int f = 0; f < n; ++f) {
-            if (!hit[f]) continue;  // uniform across the block
-            const float* c = sc + 12 * f;
-            const float w0 = plane(c, X, Y);
-            const float w1 = plane(c + 3, X, Y);
-            const float w2 = plane(c + 6, X, Y);
-            const float iz = plane(c + 9, X, Y);
-            const bool inside =
-                (w0 >= -RS_EDGE_EPS) && (w1 >= -RS_EDGE_EPS) && (w2 >= -RS_EDGE_EPS);
-            if (inside) izmax = fmaxf(izmax, iz);
-        }
-        __syncthreads();  // the next chunk overwrites sc and hit
+        commit_async();
     }
-    const int px = x0 + threadIdx.x, py = y0 + threadIdx.y;
-    if (px < W && py < H) out[py * W + px] = izmax;
+    for (int st = 0; st < steps; ++st) {
+        const int nxt = st + RS_STAGES - 1;
+#pragma unroll
+        for (int j = 0; j < RS_FPL; ++j) {
+            const int f = nxt * RS_STEP + 32 * j + lane;
+            if (f < F) copy16_async(&sbox[nxt % RS_STAGES][j][lane], box4 + f);
+        }
+        commit_async();
+        wait_async();
+#pragma unroll
+        for (int j = 0; j < RS_FPL; ++j) {
+            const int f = st * RS_STEP + 32 * j + lane;
+            const float4 b = sbox[st % RS_STAGES][j][lane];
+            const bool hit =
+                f < F && b.x <= tx_hi && b.y >= tx_lo && b.z <= ty_hi && b.w >= ty_lo;
+            const unsigned mask = __ballot_sync(0xffffffffu, hit);
+            if (mask == 0u) continue;  // uniform across the warp
+            if (hit) {
+                const int slot = __popc(mask & below);
+                hits[slot][0] = coef4[3 * f];
+                hits[slot][1] = coef4[3 * f + 1];
+                hits[slot][2] = coef4[3 * f + 2];
+            }
+            __syncwarp();
+            const int n = __popc(mask);
+            for (int k = 0; k < n; ++k) {
+                // (a0 b0 c0 a1) (b1 c1 a2 b2) (c2 az bz cz)
+                const float4 u = hits[k][0], v = hits[k][1], w = hits[k][2];
+                const float y0b = __fmul_rn(u.y, Y), y1b = __fmul_rn(v.x, Y);
+                const float y2b = __fmul_rn(v.w, Y), yzb = __fmul_rn(w.z, Y);
+                const bool ina = plane(u.x, y0b, u.z, Xa) >= -RS_EDGE_EPS &&
+                                 plane(u.w, y1b, v.y, Xa) >= -RS_EDGE_EPS &&
+                                 plane(v.z, y2b, w.x, Xa) >= -RS_EDGE_EPS;
+                const bool inb = plane(u.x, y0b, u.z, Xb) >= -RS_EDGE_EPS &&
+                                 plane(u.w, y1b, v.y, Xb) >= -RS_EDGE_EPS &&
+                                 plane(v.z, y2b, w.x, Xb) >= -RS_EDGE_EPS;
+                if (ina) iza = fmaxf(iza, plane(w.y, yzb, w.w, Xa));
+                if (inb) izb = fmaxf(izb, plane(w.y, yzb, w.w, Xb));
+            }
+            __syncwarp();  // the next hits overwrite the list
+        }
+    }
+    if (py < H) {
+        if (px < W) out[py * W + px] = iza;
+        if (px + 1 < W) out[py * W + px + 1] = izb;
+    }
 }
 
 extern "C" int raster_launch(const void* coef, const void* bbox, int F, int H, int W,
                              void* out, void* stream) {
     if (H > 0 && W > 0) {
-        const dim3 block(RS_TW, RS_TH);
-        const dim3 grid((W + RS_TW - 1) / RS_TW, (H + RS_TH - 1) / RS_TH);
-        raster_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
+        const dim3 grid((W + RS_T - 1) / RS_T, (H + RS_T - 1) / RS_T);
+        raster_kernel<<<grid, 32, 0, (cudaStream_t)stream>>>(
             (const float*)coef, (const float*)bbox, F, H, W, (float*)out);
     }
     return (int)cudaGetLastError();

@@ -4,7 +4,10 @@ its plain PyTorch version (counterpart of
 
 Contract of ``nn_pallas``: for each query, the index of the nearest valid
 data point by ``d2 = (q2 + b2) - 2 ((qx bx + qy by) + qz bz)`` in float32
-(the lowest index on ties); invalid data has ``b2 = 3e38`` and never wins;
+(the lowest index on ties), evaluated with the 2 folded into the data as
+``(q2 + b2) + ((qx bx' + qy by') + qz bz')``, ``b' = -2 b`` (a power-of-two
+scale is exact, so the two forms agree bit for bit); invalid data has
+``b2 = 3e38`` and never wins;
 the winner's distance is recomputed exactly; ``found = query_valid &
 d2 < 1.5e38 & any(data_valid)``. Returns ``(dist (N,) f32, idx (N,) i64,
 found (N,) bool)``.
@@ -34,13 +37,14 @@ def fused_nn_plain(query, query_valid, data, data_valid):
     qx, qy, qz = query[:, 0], query[:, 1], query[:, 2]
     bx, by, bz = data[:, 0], data[:, 1], data[:, 2]
     b2 = torch.where(data_valid, _sq3(bx, by, bz), torch.full_like(bx, BIG))
+    bx, by, bz = -2.0 * bx, -2.0 * by, -2.0 * bz
     q2 = _sq3(qx, qy, qz)
     chunk = max(1, _PLAIN_CHUNK_ELEMS // max(M, 1))
     best, bidx = [], []
     for s in range(0, N, chunk):
         e = min(N, s + chunk)
         cross = (qx[s:e, None] * bx + qy[s:e, None] * by) + qz[s:e, None] * bz
-        d2 = (q2[s:e, None] + b2) - 2.0 * cross
+        d2 = (q2[s:e, None] + b2) + cross
         m, a = d2.min(dim=1)
         best.append(m)
         bidx.append(torch.where(m < BIG, a, torch.zeros_like(a)))
@@ -78,8 +82,9 @@ def fused_nn(query, query_valid, data, data_valid):
         return fused_nn_plain(query, query_valid, data, data_valid)
     if query.device.type != "cuda":
         raise RuntimeError(f"fused_nn: unsupported device {query.device}")
-    query, data = query.contiguous(), data.contiguous()
-    query_valid, data_valid = query_valid.contiguous(), data_valid.contiguous()
+    query, query_valid = query.contiguous(), query_valid.contiguous()
+    # the kernel reads the data in 16-byte words
+    data, data_valid = kernels.aligned16(data), kernels.aligned16(data_valid)
     N, M = query.shape[0], data.shape[0]
     dist = torch.empty(N, dtype=torch.float32, device=query.device)
     idx = torch.empty(N, dtype=torch.int64, device=query.device)

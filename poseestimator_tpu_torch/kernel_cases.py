@@ -1,0 +1,192 @@
+"""Seeded inputs that reach the edges of the kernels K1 (``fused_nn``) and K2
+(``raster``): ties across the kernels' data splits, a distance form that
+cancels below zero, ragged sizes, and faces whose boxes end on tile edges.
+
+Every case is numpy, made from a seed, so one case goes through the JAX
+reference, the plain PyTorch versions and the CUDA kernels alike
+(``chip_smoke.py``, ``tests/test_torch_kernels_cuda.py`` and the CPU parity
+tests use them).
+
+K1 splits its data across the blocks of a cluster, the warps of a block and
+the lane groups of a warp (neighbouring points go to different groups), each
+part a multiple of 16 points long; K2 culls 32 faces per ballot against 8 x 8
+pixel tiles. The cases below put their edges on every multiple of 8.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+from .geom3d.camera import Intrinsics
+from .render.mesh import make_icosphere
+
+NNCase = tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]
+
+
+def _cloud(rng, n, scale=0.03, center=0.5):
+    return (rng.normal(size=(n, 3)) * scale + [0.0, 0.0, center]).astype(np.float32)
+
+
+def _lattice(rng, m, step=0.01, center=0.5):
+    """m points of a cubic lattice of ``step`` around (0, 0, center), each
+    jittered by up to a tenth of a step: every pair of points is more than
+    0.8 steps apart."""
+    side = int(np.ceil(m ** (1 / 3)))
+    g = np.stack(np.meshgrid(*[np.arange(side)] * 3, indexing="ij"), -1).reshape(-1, 3)[:m]
+    pts = (g - side / 2) * step + rng.uniform(-0.1, 0.1, size=(m, 3)) * step
+    return (pts + [0.0, 0.0, center]).astype(np.float32)
+
+
+def nn_ties(m: int = 4096, seed: int = 0) -> tuple[NNCase, np.ndarray]:
+    """Exact ties that straddle every split edge of K1, and the lowest index
+    each query must get.
+
+    Data: a jittered 1 cm lattice 0.5 m out. For every edge e (each multiple
+    of 8), points e - 1 and e are made one point; so are 0 and m - 1; and one
+    point is copied to every index 3 + 64 k, across all warps and slices.
+    One query sits 0.1 mm from each such point. In every fourth pair the
+    lower copy is invalid, so the upper one must win.
+    """
+    rng = np.random.default_rng(seed)
+    d = _lattice(rng, m)
+    dv = np.ones(m, bool)
+    groups = [[0, m - 1]] + [[e - 1, e] for e in range(8, m, 8) if e != m - 1]
+    groups.append(list(range(3, m, 64)))
+    groups = [g for g in groups if len(set(g)) > 1]
+    q, expect = [], []
+    for k, g in enumerate(groups):
+        d[g] = d[g[0]]
+        if k % 4 == 3 and len(g) == 2:
+            dv[g[0]] = False
+        expect.append(min(j for j in g if dv[j]))
+        q.append(d[g[0]] + np.float32(1e-4) * rng.normal(size=3).astype(np.float32))
+    q = np.asarray(q, np.float32)
+    return (q, np.ones(len(q), bool), d, dv), np.asarray(expect, np.int64)
+
+
+def nn_negative_d2(n: int = 512, m: int = 4096, seed: int = 1) -> tuple[NNCase, np.ndarray]:
+    """Queries 10 um from data points 0.5 m out, where the expanded squared
+    distance of that pair (~1e-10) rounds to about +-6e-8, often below zero;
+    every other point is more than 8 mm away, so that pair is the neighbour
+    under any rounding. Returns the case and each query's index."""
+    rng = np.random.default_rng(seed)
+    d = _lattice(rng, m)
+    idx = rng.choice(m, size=n, replace=False).astype(np.int64)
+    q = d[idx] + np.float32(1e-5) * rng.normal(size=(n, 3)).astype(np.float32)
+    return (q, np.ones(n, bool), d, np.ones(m, bool)), idx
+
+
+def expanded_d2(q: np.ndarray, d: np.ndarray) -> np.ndarray:
+    """K1's selection distance in float32, in its order of operations:
+    ``(q2 + b2) + ((qx bx' + qy by') + qz bz')`` with ``b' = -2 b``."""
+    q2 = (q[:, 0] * q[:, 0] + q[:, 1] * q[:, 1]) + q[:, 2] * q[:, 2]
+    b2 = (d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1]) + d[:, 2] * d[:, 2]
+    b = np.float32(-2.0) * d
+    cross = (q[:, :1] * b[:, 0] + q[:, 1:2] * b[:, 1]) + q[:, 2:] * b[:, 2]
+    return (q2[:, None] + b2) + cross
+
+
+def nn_cases(seed: int = 1) -> dict[str, NNCase]:
+    """Every K1 case by name: the main path's 4096 x 4096, the edge cases
+    above, ragged sizes (1 x 1, M = 5 below the number of slices,
+    129 x 4097, 1000 x 3000, 300 x 20000), masks, and a 16k x 16k problem
+    that streams its data through several tiles."""
+    rng = np.random.default_rng(seed)
+    ones = lambda n: np.ones(n, bool)  # noqa: E731
+    mask = lambda n, p: rng.uniform(size=n) < p  # noqa: E731
+    unit = lambda n: _cloud(rng, n, 1.0, 0.0)  # noqa: E731
+    return {
+        "4096x4096": (_cloud(rng, 4096), ones(4096), _cloud(rng, 4096), ones(4096)),
+        "ties across split edges": nn_ties()[0],
+        "negative d2 0.5 m out": nn_negative_d2()[0],
+        "1x1": (unit(1), ones(1), unit(1), ones(1)),
+        "37x5 (M below the slice count)": (unit(37), ones(37), unit(5), mask(5, 0.8)),
+        "129x4097": (_cloud(rng, 129), ones(129), _cloud(rng, 4097), mask(4097, 0.9)),
+        "ragged 1000x3000": (unit(1000), ones(1000), unit(3000), ones(3000)),
+        "300x20000": (unit(300), mask(300, 0.9), unit(20000), mask(20000, 0.5)),
+        "random invalid masks": (_cloud(rng, 4096), mask(4096, 0.8), _cloud(rng, 4096),
+                                 mask(4096, 0.6)),
+        "all data invalid": (_cloud(rng, 500), ones(500), _cloud(rng, 2000), np.zeros(2000, bool)),
+        "16k x 16k invalid masks": (_cloud(rng, 16384, 0.2), mask(16384, 0.95),
+                                    _cloud(rng, 16384, 0.2), mask(16384, 0.95)),
+    }
+
+
+# screen-space camera: a vertex (x z, y z, z) with z a power of two lands
+# on pixel (x, y) exactly
+_SCREEN = dict(fx=1.0, fy=1.0, cx=0.0, cy=0.0)
+
+
+def _screen_mesh(tri_xy: np.ndarray, z: np.ndarray):
+    """Triangles given in pixels (F, 3, 2) at depths z (F, 3), each a power
+    of two, as camera-frame vertices and faces."""
+    v = np.concatenate([tri_xy * z[..., None], z[..., None]], -1).reshape(-1, 3)
+    f = np.arange(v.shape[0], dtype=np.int32).reshape(-1, 3)
+    return v.astype(np.float32), f
+
+
+def _depths(rng, n):
+    return rng.choice(np.array([0.5, 1.0, 2.0, 4.0], np.float32), size=(n, 3))
+
+
+def _edge_triangles(rng, n, H, W):
+    """Triangles whose corners sit on, or one pixel or half a pixel off, the
+    multiples of 8, spanning one to three tiles."""
+    def coord(size, shape):
+        k = rng.integers(0, size // 8 + 1, size=shape)
+        return 8 * k + rng.choice(np.array([-1.0, -0.5, 0.0, 0.5, 1.0]), size=shape)
+
+    corner = np.stack([coord(W, n), coord(H, n)], -1)[:, None, :]
+    span = (8.0 * rng.integers(1, 4, size=(n, 2, 2)) - rng.choice(
+        np.array([0.0, 1.0]), size=(n, 2, 2))) * rng.choice(np.array([-1.0, 1.0]), size=(n, 2, 1))
+    tri = np.concatenate([corner, corner + span * [[1, 0], [0, 1]]], 1)
+    return tri.astype(np.float32)
+
+
+def _random_triangles(rng, n, H, W, size=12.0):
+    c = rng.uniform([0, 0], [W, H], size=(n, 1, 2))
+    return (c + rng.uniform(-size, size, size=(n, 3, 2))).astype(np.float32)
+
+
+def raster_cases(seed: int = 2) -> dict[str, dict]:
+    """Every K2 edge case by name, as ``dict(vertices, faces, T, intr, H, W)``
+    for ``face_coeffs(vertices, faces, T, intr, near=0.01)``:
+
+    * boxes ending exactly on, and one or half a pixel off, the tile edges;
+    * a chunk of 32 faces none of which touches the window, then a chunk all
+      of whose faces cover it whole, then a ragged tail;
+    * a 61 x 45 window (neither side a multiple of the tile);
+    * the 4096-face icosphere over the 320 x 240 half-resolution frame.
+    """
+    rng = np.random.default_rng(seed)
+    eye = np.eye(4, dtype=np.float32)
+    out = {}
+
+    H, W = 64, 64
+    tri = _edge_triangles(rng, 300, H, W)
+    v, f = _screen_mesh(tri, _depths(rng, len(tri)))
+    out["boxes on tile edges"] = dict(vertices=v, faces=f, T=eye, H=H, W=W)
+
+    H, W = 48, 40
+    away = _random_triangles(rng, 32, H, W) + np.float32(1000.0)
+    whole = np.broadcast_to(np.array([[-64, -64], [256, -64], [-64, 256]], np.float32),
+                            (32, 3, 2)).copy()
+    tail = _random_triangles(rng, 39, H, W)
+    tri = np.concatenate([away, whole, tail])
+    v, f = _screen_mesh(tri, _depths(rng, len(tri)))
+    out["empty chunk, full chunk, ragged tail"] = dict(vertices=v, faces=f, T=eye, H=H, W=W)
+
+    H, W = 45, 61
+    tri = np.concatenate([_random_triangles(rng, 150, H, W), _edge_triangles(rng, 50, H, W)])
+    v, f = _screen_mesh(tri, _depths(rng, len(tri)))
+    out["61x45 window"] = dict(vertices=v, faces=f, T=eye, H=H, W=W)
+
+    for case in out.values():
+        case["intr"] = Intrinsics(**_SCREEN, width=case["W"], height=case["H"])
+
+    sv, sf = make_icosphere(0.1, 4)
+    T = np.eye(4, dtype=np.float32)
+    T[2, 3] = 0.45
+    intr = Intrinsics.from_fov(60.0, 640, 480).scaled(2)
+    out["icosphere 4096 faces, 240x320 frame"] = dict(
+        vertices=sv, faces=sf[:4096], T=T, intr=intr, H=intr.height, W=intr.width)
+    return out

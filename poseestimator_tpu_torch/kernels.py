@@ -6,7 +6,7 @@ happen at first use (never at import), all sources in parallel, into
 ``build/kernels/`` beside the package; a library's file name carries a hash
 of its source and flags, so an edited source is rebuilt and an unchanged one
 is reused. Every C entry returns ``cudaGetLastError()`` after its launch and
-``check`` turns a nonzero code into an exception.
+``launch`` turns a nonzero code into an exception.
 """
 from __future__ import annotations
 
@@ -39,7 +39,7 @@ SIGNATURES = {
     "raster": ("raster_launch", [_P, _P, _I, _I, _I, _P, _P]),
 }
 
-_libs: dict[str, ctypes.CDLL] = {}
+_entries: dict[str, ctypes._CFuncPtr] = {}
 
 
 class LaunchCounter:
@@ -97,27 +97,31 @@ def build_all(names=None) -> dict[str, float]:
     return took
 
 
-def library(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built on first use."""
-    lib = _libs.get(name)
-    if lib is None:
+def entry(name: str) -> ctypes._CFuncPtr:
+    """The launch entry of ``csrc/<name>.cu``, built on first use."""
+    fn = _entries.get(name)
+    if fn is None:
         build_all()
-        lib = ctypes.CDLL(str(_target(name)))
         fn_name, argtypes = SIGNATURES[name]
-        fn = getattr(lib, fn_name)
+        fn = getattr(ctypes.CDLL(str(_target(name))), fn_name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        _libs[name] = lib
-    return lib
+        _entries[name] = fn
+    return fn
 
 
 def launch(name: str, *args) -> None:
     """Call the launch entry of ``name`` and raise on a CUDA error code."""
-    lib = library(name)
-    fn_name, _ = SIGNATURES[name]
-    code = getattr(lib, fn_name)(*args)
+    code = entry(name)(*args)
     if code != 0:
-        raise RuntimeError(f"{fn_name} failed with cudaError {code}")
+        raise RuntimeError(f"{SIGNATURES[name][0]} failed with cudaError {code}")
+
+
+def aligned16(t):
+    """``t`` contiguous and starting on a 16-byte boundary, for kernels that
+    read it in 16-byte words; a view that starts off the boundary is copied."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def current_stream() -> int:

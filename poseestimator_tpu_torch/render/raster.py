@@ -106,7 +106,7 @@ def raster(coef: torch.Tensor, bbox: torch.Tensor, H: int, W: int) -> torch.Tens
         return raster_plain(coef, H, W)
     if coef.device.type != "cuda":
         raise RuntimeError(f"raster: unsupported device {coef.device}")
-    coef, bbox = coef.contiguous(), bbox.contiguous()
+    coef, bbox = kernels.aligned16(coef), kernels.aligned16(bbox)  # read as float4 rows
     out = torch.empty((H, W), dtype=torch.float32, device=coef.device)
     kernels.launch("raster", coef.data_ptr(), bbox.data_ptr(), coef.shape[0],
                    H, W, out.data_ptr(), kernels.current_stream())

@@ -12,6 +12,7 @@ import torch
 
 from poseestimator_tpu.geom3d.knn import nearest_neighbor as j_nearest_neighbor
 from poseestimator_tpu.geom3d.pallas_nn import nn_pallas
+from poseestimator_tpu_torch import kernel_cases as kc
 from poseestimator_tpu_torch.geom3d import fused_nn as tnn
 from poseestimator_tpu_torch.geom3d.knn import nearest_neighbor
 
@@ -88,6 +89,41 @@ def test_plain_chunking_is_exact(rng, monkeypatch):
     chunked = tnn.fused_nn_plain(*args)
     for a, b in zip(whole, chunked):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("make", [kc.nn_ties, kc.nn_negative_d2], ids=["ties", "negative_d2"])
+def test_edge_cases_match_pallas_interpret(make):
+    """Exact ties across every split edge of the CUDA kernel (the lowest
+    valid index must win) and queries whose expanded distance cancels below
+    zero: the plain version, the Pallas kernel and the expected indices
+    agree."""
+    (q, qv, d, dv), expect = make()
+    pj, pt = _both(q, qv, d, dv)
+    _assert_same(pj, pt)
+    np.testing.assert_array_equal(pt[1], expect)
+
+
+def test_negative_d2_case_goes_below_zero():
+    (q, _, d, _), idx = kc.nn_negative_d2()
+    winner = kc.expanded_d2(q, d)[np.arange(len(q)), idx]
+    assert (winner < 0).sum() > 50
+
+
+@pytest.mark.parametrize("name", ["1x1", "37x5 (M below the slice count)", "129x4097"])
+def test_ragged_cases_match_pallas_interpret(name):
+    _assert_same(*_both(*kc.nn_cases()[name]))
+
+
+def test_folded_distance_is_bit_identical(rng):
+    """Folding the 2 into the data, (q2 + b2) + q.(-2b), gives the bits of
+    nn_pallas's (q2 + b2) - 2 q.b: a power-of-two scale is exact."""
+    q = (rng.normal(size=(300, 3)) * 0.03 + [0, 0, 0.5]).astype(np.float32)
+    d = (rng.normal(size=(700, 3)) * 0.03 + [0, 0, 0.5]).astype(np.float32)
+    q2 = (q[:, 0] * q[:, 0] + q[:, 1] * q[:, 1]) + q[:, 2] * q[:, 2]
+    b2 = (d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1]) + d[:, 2] * d[:, 2]
+    cross = (q[:, :1] * d[:, 0] + q[:, 1:2] * d[:, 1]) + q[:, 2:] * d[:, 2]
+    unfolded = (q2[:, None] + b2) - np.float32(2.0) * cross
+    np.testing.assert_array_equal(kc.expanded_d2(q, d), unfolded)
 
 
 def test_wrapper_rejects_bad_input():

@@ -1,24 +1,43 @@
 """The port's CUDA kernels against their plain PyTorch versions on a card:
-K1 indices and found flags identical and distances within 1e-6, K2 max-1/z
-images identical, and each wrapper counts exactly its own launches. The
-``cuda``-marked cases need a card (the kernels have no CPU mode) and skip
-without one.
+K1 indices and found flags identical and distances exact, K2 max-1/z images
+identical, on random inputs and on the edge cases of
+``poseestimator_tpu_torch.kernel_cases`` (ties across the data splits,
+negative expanded distances, ragged sizes, boxes on tile edges, empty and
+full face chunks, the 4096-face icosphere); and each wrapper counts exactly
+its own launches. The ``cuda``-marked cases need a card (the kernels have no
+CPU mode) and skip without one.
 
 This file imports no JAX, so it also runs where JAX is not installed:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_cuda.py
 """
+import numpy as np
 import pytest
 import torch
 
+from poseestimator_tpu_torch import kernel_cases as kc
 from poseestimator_tpu_torch.geom3d import fused_nn as tnn
 from poseestimator_tpu_torch.geom3d.camera import Intrinsics
 from poseestimator_tpu_torch.render import raster as traster
 from poseestimator_tpu_torch.render.mesh import make_icosphere
 
+NN_CASES = sorted(kc.nn_cases())
+RASTER_CASES = sorted(kc.raster_cases())
+
 
 def _need_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the port's kernels have no CPU mode")
+
+
+def _nn_same(q, qv, d, dv):
+    before = tnn.fused_nn_stats.launches
+    kd, ki, kf = tnn.fused_nn(q, qv, d, dv)
+    torch.cuda.synchronize()
+    assert tnn.fused_nn_stats.launches == before + 1
+    pd, pi, pf = tnn.fused_nn_plain(q, qv, d, dv)
+    assert torch.equal(ki, pi) and torch.equal(kf, pf)
+    assert torch.equal(kd, pd)
+    return ki
 
 
 @pytest.mark.cuda
@@ -30,13 +49,35 @@ def test_fused_nn_kernel_matches_plain(n, m, p):
     d = torch.randn(m, 3, device="cuda", generator=g)
     qv = torch.rand(n, device="cuda", generator=g) < 0.9
     dv = torch.rand(m, device="cuda", generator=g) < p
-    before = tnn.fused_nn_stats.launches
-    kd, ki, kf = tnn.fused_nn(q, qv, d, dv)
-    torch.cuda.synchronize()
-    assert tnn.fused_nn_stats.launches == before + 1
-    pd, pi, pf = tnn.fused_nn_plain(q, qv, d, dv)
-    assert torch.equal(ki, pi) and torch.equal(kf, pf)
-    assert float((kd - pd).abs().max()) <= 1e-6
+    _nn_same(q, qv, d, dv)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", NN_CASES)
+def test_fused_nn_kernel_edge_cases(name):
+    _need_card()
+    _nn_same(*(torch.from_numpy(a).cuda() for a in kc.nn_cases()[name]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("make", [kc.nn_ties, kc.nn_negative_d2], ids=["ties", "negative_d2"])
+def test_fused_nn_kernel_picks_the_lowest_index(make):
+    _need_card()
+    case, expect = make()
+    ki = _nn_same(*(torch.from_numpy(a).cuda() for a in case))
+    np.testing.assert_array_equal(ki.cpu().numpy(), expect)
+
+
+@pytest.mark.cuda
+def test_fused_nn_kernel_takes_unaligned_views():
+    """Data that start off a 16-byte boundary are copied, not misread."""
+    _need_card()
+    q, qv, d, dv = (torch.from_numpy(a).cuda() for a in kc.nn_cases()["129x4097"])
+    dd = torch.empty(d.numel() + 1, device="cuda")[1:].view_as(d).copy_(d)
+    vv = torch.empty(dv.numel() + 1, dtype=torch.bool, device="cuda")[1:].copy_(dv)
+    assert dd.data_ptr() % 16 and vv.data_ptr() % 16
+    for a, b in zip(tnn.fused_nn(q, qv, dd, vv), tnn.fused_nn_plain(q, qv, d, dv)):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
@@ -55,6 +96,36 @@ def test_raster_kernel_matches_plain():
     izp = traster.raster_plain(coef, 64, 96)
     assert torch.equal(izk, izp)
     assert int((izk > 0).sum()) > 1000
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", RASTER_CASES)
+def test_raster_kernel_edge_cases(name):
+    _need_card()
+    c = kc.raster_cases()[name]
+    coef, bbox = traster.face_coeffs(
+        torch.from_numpy(c["vertices"]).cuda(), torch.from_numpy(c["faces"]).cuda(),
+        torch.from_numpy(c["T"]).cuda(), c["intr"], near=0.01)
+    izk = traster.raster(coef, bbox, c["H"], c["W"])
+    torch.cuda.synchronize()
+    izp = traster.raster_plain(coef, c["H"], c["W"], chunk=64)
+    assert torch.equal(izk, izp)
+    assert int((izk > 0).sum()) > 1000
+
+
+@pytest.mark.cuda
+def test_raster_kernel_takes_unaligned_views():
+    """Rows that start off a 16-byte boundary are copied, not misread."""
+    _need_card()
+    c = kc.raster_cases()["61x45 window"]
+    coef, bbox = traster.face_coeffs(
+        torch.from_numpy(c["vertices"]).cuda(), torch.from_numpy(c["faces"]).cuda(),
+        torch.from_numpy(c["T"]).cuda(), c["intr"], near=0.01)
+    cv = torch.empty(coef.numel() + 1, device="cuda")[1:].view_as(coef).copy_(coef)
+    bv = torch.empty(bbox.numel() + 1, device="cuda")[1:].view_as(bbox).copy_(bbox)
+    assert cv.data_ptr() % 16 and bv.data_ptr() % 16
+    assert torch.equal(traster.raster(cv, bv, c["H"], c["W"]),
+                       traster.raster_plain(coef, c["H"], c["W"]))
 
 
 def test_wrappers_raise_on_other_devices():

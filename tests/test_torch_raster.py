@@ -172,3 +172,26 @@ def test_wrapper_rejects_bad_input():
         traster.raster(torch.zeros(8, 11), torch.zeros(8, 4), 16, 16)
     with pytest.raises(TypeError):
         traster.raster(torch.zeros(8, 12, dtype=torch.float64), torch.zeros(8, 4), 16, 16)
+
+
+def test_kernel_edge_cases_reach_the_edges():
+    """The K2 edge cases of ``kernel_cases`` (held against the kernel on the
+    card by tests/test_torch_kernels_cuda.py) are what they claim: boxes that
+    end on tile edges, a first chunk of 32 faces that misses the window and a
+    second that covers all of it, and a window that is no multiple of 8."""
+    from poseestimator_tpu_torch import kernel_cases as kc
+
+    def setup(c):
+        return traster.face_coeffs(torch.from_numpy(c["vertices"]), torch.from_numpy(c["faces"]),
+                                   torch.from_numpy(c["T"]), c["intr"], near=0.01)
+
+    cases = kc.raster_cases()
+    _, bbox = setup(cases["boxes on tile edges"])
+    assert (bbox.numpy() % 8 == 0).sum() > 100 and (bbox.numpy() % 8 == 7).sum() > 100
+    c = cases["empty chunk, full chunk, ragged tail"]
+    coef, bbox = setup(c)
+    H, W = c["H"], c["W"]
+    assert (bbox[:32, 0] > W).all()
+    for f in range(32, 64):
+        assert (traster.raster_plain(coef[f:f + 1], H, W) > 0).all()
+    assert cases["61x45 window"]["H"] % 8 and cases["61x45 window"]["W"] % 8
