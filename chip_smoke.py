@@ -3,10 +3,18 @@
 
 Builds the port's hand-written kernels from ``poseestimator_tpu_torch/csrc``,
 holds each against its plain PyTorch version on the card, then drives the
-port's main path — the fused detect + track frame (YOLO11n-seg at a 640
-letterbox, mesh render, dense point-to-point ICP) — for 30 frames of the
-bench box scene and checks its accuracy against ground truth. Any failed
-phase exits nonzero.
+port's two paths and checks their accuracy against ground truth:
+
+- the main path, the fused detect + track frame (YOLO11n-seg at a 640
+  letterbox, mesh render, dense point-to-point ICP), for 30 frames of the
+  bench box scene;
+- the init path, the global template search of ``PoseEstimator``: the bench
+  box CAD written as a PLY, its 5-view template database rendered on the
+  card, and the search run on two observations (the bench scene, and a pose
+  near a template view), with the kernels held against their plain versions
+  at the shapes the search gives them.
+
+Any failed phase exits nonzero.
 
 Output: progress lines, then the card's name and power limit, a JSON
 summary, a JSON line of the kernels, and as the last line
@@ -24,21 +32,20 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 
 FRAMES = 30
 ADDS_BUDGET_CM = 1.5  # dense tracking budget of the JAX package's bench
+SEARCH_REPS = 5  # timed warm searches per observation
 # non-tensor float32 peak, HBM rate, and single instructions a second
 # (132 SMs x 128 lanes x 1.98 GHz): the rate of an FMA-free kernel
 H100 = {"f32_ops": 67e12, "bytes": 3.35e12, "lane_instr": 132 * 128 * 1.98e9}
-BOX_HALF = (0.06, 0.04, 0.025)  # the bench box CAD
-BOX_FACES = np.array(
-    [[0, 1, 3], [0, 3, 2], [4, 6, 7], [4, 7, 5], [0, 4, 5], [0, 5, 1],
-     [2, 3, 7], [2, 7, 6], [0, 2, 6], [0, 6, 4], [1, 5, 7], [1, 7, 3]], np.int32)
 
 
 def fail(msg: str) -> None:
@@ -50,13 +57,7 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def box_vertices(half=BOX_HALF) -> np.ndarray:
-    bx, by, bz = half
-    return np.array([[sx * bx, sy * by, sz * bz] for sx in (-1, 1) for sy in (-1, 1)
-                     for sz in (-1, 1)], np.float32)
-
-
-def box_surface(rng: np.random.Generator, n: int, half=BOX_HALF) -> np.ndarray:
+def box_surface(rng: np.random.Generator, n: int, half) -> np.ndarray:
     """Uniform samples on the box shell (the ADD-S model points)."""
     half = np.asarray(half, np.float32)
     face = rng.integers(0, 6, size=n)
@@ -64,6 +65,20 @@ def box_surface(rng: np.random.Generator, n: int, half=BOX_HALF) -> np.ndarray:
     ax = face // 2
     pts[np.arange(n), ax] = np.where(face % 2 == 0, 1.0, -1.0).astype(np.float32) * half[ax]
     return pts
+
+
+def view_pose(dirv, dist: float, angle: float, look_at, gl_to_cv) -> np.ndarray:
+    """Model-to-camera pose of a camera looking at the origin from ``dist``
+    along ``dirv`` (up +Y), perturbed by ``angle`` about z and ``angle / 2``
+    about x: the construction of tests/test_pipeline.py's ``gt_pose``."""
+    d = np.asarray(dirv, np.float64)
+    T_gl = look_at(d / np.linalg.norm(d) * dist, np.zeros(3), [0.0, 1.0, 0.0]).numpy()
+    c, s = np.cos(angle), np.sin(angle)
+    ch, sh = np.cos(angle * 0.5), np.sin(angle * 0.5)
+    P = np.eye(4)
+    P[:3, :3] = np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]]) @ np.array(
+        [[1, 0, 0], [0, ch, -sh], [0, sh, ch]])
+    return (P @ (gl_to_cv @ T_gl)).astype(np.float32)
 
 
 def motion_delta() -> np.ndarray:
@@ -203,7 +218,9 @@ def check_fused_nn(torch, fnn, dev) -> dict:
     q, qv, d, dv = cases["16k x 16k invalid masks"]
     out["16384x16384"] = {"device_ms": device_ms(torch, lambda: fnn.fused_nn(q, qv, d, dv), 10),
                           "bound_ms": nn_bound(16384, 16384)[0],
-                          "issue_ms": nn_issue_ms(16384, 16384)}
+                          "issue_ms": nn_issue_ms(16384, 16384),
+                          # a 1 GiB distance matrix per call
+                          "library_ms": device_ms(torch, lambda: torch.cdist(q, d).min(1), 4)}
     return out
 
 
@@ -234,7 +251,7 @@ def check_raster(torch, rs, window_origin, mesh_v, mesh_f, T0, intr_r, win, dev)
         worst = max(worst, err)
         log(f"K2 {name}: {coef.shape[0]} faces, coverage and depth identical "
             f"({int((izk > 0).sum())} px covered)")
-        if name == main or name.startswith("icosphere"):
+        if name == main or name.startswith(("icosphere", "bench box template")):
             timings[name] = {
                 "faces": coef.shape[0], "hw": [H, W], "covered_px": int((izk > 0).sum()),
                 "device_ms": device_ms(torch, lambda: rs.raster(coef, bbox, H, W)),
@@ -247,6 +264,173 @@ def check_raster(torch, rs, window_origin, mesh_v, mesh_f, T0, intr_r, win, dev)
     return {"max_abs_err": worst, "main": main, "shapes": timings}
 
 
+def check_search_shapes(torch, fnn, rs, nn_inputs: dict, raster_inputs: dict) -> dict:
+    """K1 and K2 against their plain versions on the inputs a search gave
+    them (the first call of each shape), with device times and bounds."""
+    out = {"K1": {}, "K2": {}}
+    for (n, m), (q, qv, d, dv) in sorted(nn_inputs.items()):
+        kd, ki, kf = fnn.fused_nn(q, qv, d, dv)
+        torch.cuda.synchronize()
+        pd, pi, pf = fnn.fused_nn_plain(q, qv, d, dv)
+        if not (torch.equal(ki, pi) and torch.equal(kf, pf) and torch.equal(kd, pd)):
+            fail(f"K1 at the search's {n}x{m}: differs from the plain version")
+        b = nn_bound(n, m)
+        out["K1"][f"{n}x{m}"] = {
+            "device_ms": device_ms(torch, lambda: fnn.fused_nn(q, qv, d, dv)),
+            "plain_ms": call_ms(torch, lambda: fnn.fused_nn_plain(q, qv, d, dv), reps=10),
+            "library_ms": device_ms(torch, lambda: torch.cdist(q, d).min(1)),
+            "bound_ms": b[0], "bound_by": b[1]}
+    for (H, W, F), (coef, bbox, _, _) in sorted(raster_inputs.items()):
+        izk = rs.raster(coef, bbox, H, W)
+        torch.cuda.synchronize()
+        if not torch.equal(izk, rs.raster_plain(coef, H, W, chunk=64)):
+            fail(f"K2 at the search's {H}x{W}: differs from the plain version")
+        b = raster_bound(bbox, H, W)
+        out["K2"][f"{H}x{W} window, {F} faces"] = {
+            "device_ms": device_ms(torch, lambda: rs.raster(coef, bbox, H, W)),
+            "plain_ms": call_ms(torch, lambda: rs.raster_plain(coef, H, W, chunk=64), reps=10),
+            "bound_ms": b[0], "bound_by": b[1]}
+    for k in ("K1", "K2"):
+        for shape, t in out[k].items():
+            log(f"{k} at the search's {shape}: identical to the plain version; device "
+                f"{t['device_ms']:.5f} ms, plain {t['plain_ms']:.4f} ms, bound "
+                f"{t['bound_ms']:.3g} ms ({t['bound_by']})"
+                + (f", library {t['library_ms']:.5f} ms" if "library_ms" in t else ""))
+    return out
+
+
+def _first_call_recorder(torch, store: dict, fn, key):
+    """``fn`` that also keeps a copy of the arguments of its first call of
+    each ``key(*args)``."""
+    def wrapped(*args):
+        k = key(*args)
+        if k not in store:
+            store[k] = tuple(a.clone() if torch.is_tensor(a) else a for a in args)
+        return fn(*args)
+    return wrapped
+
+
+def search_phase(torch, dev, kc, fnn, rs, intr, tmp: str, profile_path=None) -> dict:
+    """The init path: ``PoseEstimator`` on the bench box CAD (its template
+    database rendered on the card), searched on two observations. Per
+    observation: K1 and K2 launches of one search (counts set to 0 just
+    before it), the median wall time of SEARCH_REPS warm searches, the
+    winning template and ADD-S against the true pose. Also returns the
+    kernels' inputs by shape from the first search. ``profile_path``: also
+    trace 2 searches of the last observation there."""
+    from poseestimator_tpu_torch.geom3d import knn as knn_mod
+    from poseestimator_tpu_torch.geom3d.camera import backproject_depth
+    from poseestimator_tpu_torch.geom3d.sampling import random_sample
+    from poseestimator_tpu_torch.geom3d.se3 import look_at
+    from poseestimator_tpu_torch.pipeline import pose_estimator as pe
+    from poseestimator_tpu_torch.render.mesh import pad_faces
+    from poseestimator_tpu_torch.utils.plyio import write_ply
+
+    verts = kc.box_vertices()
+    cad = os.path.join(tmp, "box.ply")
+    write_ply(cad, verts, faces=kc.BOX_FACES)
+    rs.raster_stats.launches = 0
+    t = time.perf_counter()
+    est = pe.PoseEstimator(cad, os.path.join(tmp, "views"), intr, device=dev)
+    torch.cuda.synchronize()
+    build = {"ms": (time.perf_counter() - t) * 1e3, "k2_launches": rs.raster_stats.launches,
+             "templates": int(est._tpl_points.shape[0]), "tpl_cap": int(est._tpl_points.shape[1]),
+             "dst_cap": est._search_cap}
+    log(f"search: estimator built in {build['ms']:.1f} ms ({build['templates']} templates "
+        f"rendered by {build['k2_launches']} K2 launches at 640x480, template capacity "
+        f"{build['tpl_cap']}, observation capacity {build['dst_cap']})")
+    if build["k2_launches"] != build["templates"]:
+        fail(f"template database: {build['k2_launches']} K2 launches for "
+             f"{build['templates']} views")
+
+    mesh_v = torch.from_numpy(verts).to(dev)
+    mesh_f = torch.from_numpy(pad_faces(kc.BOX_FACES, 256)).to(dev)
+    T0 = np.eye(4, dtype=np.float32)
+    T0[2, 3] = 0.5
+    scenes = {"a: bench scene": motion_delta() @ T0,
+              "b: near template view 11": view_pose((1.0, 1.0, 1.0), 0.5, 0.1, look_at,
+                                                   kc.GL_TO_CV)}
+    model_pts = torch.from_numpy(box_surface(np.random.default_rng(1), 2000, kc.BOX_HALF)).to(dev)
+    diag_cm = float(np.linalg.norm(verts.max(0) - verts.min(0))) * 100.0
+    gen = torch.Generator(device=dev).manual_seed(2)
+    evals = []  # (chains, batched evaluations) of each ICP of a search
+    nn_inputs, raster_inputs = {}, {}
+    orig_icp, orig_nn, orig_raster = pe.icp_point_to_point_batched, knn_mod.fused_nn, rs.raster
+
+    def icp_recorded(*args, **kw):
+        r = orig_icp(*args, **kw)
+        evals.append((args[0].shape[0], r.n_evals))
+        return r
+
+    results = {}
+    pe.icp_point_to_point_batched = icp_recorded
+    try:
+        for name, T_np in scenes.items():
+            T = torch.from_numpy(T_np).to(dev)
+            depth = rs.render_depth_mesh(mesh_v, mesh_f, T, intr, near=0.01, far=5.0)
+            cloud = random_sample(backproject_depth(depth, intr, depth_min=0.01, depth_max=5.0),
+                                  4096, gen)
+            mask = depth > 0
+
+            def search():
+                return est.find_best_template_candidates(cloud, mask=mask)
+
+            if not nn_inputs:  # warm-up; the first one keeps the kernels' inputs
+                knn_mod.fused_nn = _first_call_recorder(
+                    torch, nn_inputs, orig_nn, lambda q, qv, d, dv: (q.shape[0], d.shape[0]))
+                rs.raster = _first_call_recorder(
+                    torch, raster_inputs, orig_raster, lambda c, b, H, W: (H, W, c.shape[0]))
+            try:
+                search()
+            finally:
+                knn_mod.fused_nn, rs.raster = orig_nn, orig_raster
+            torch.cuda.synchronize()
+
+            evals.clear()
+            fnn.fused_nn_stats.launches = 0
+            rs.raster_stats.launches = 0
+            H, _, cands = search()
+            torch.cuda.synchronize()
+            k1, k2 = fnn.fused_nn_stats.launches, rs.raster_stats.launches
+            chain_evals = list(evals)
+            # one launch per batched evaluation (and one for alignment_score);
+            # K2 once per chain and polish stage and once per view score
+            want_k1 = sum(e for _, e in chain_evals) + 1
+            n_chains = chain_evals[-1][0]
+            want_k2 = sum(b for b, _ in chain_evals[1:]) + n_chains
+            if k1 != want_k1:
+                fail(f"search {name}: K1 launched {k1} times for {want_k1} batched evaluations")
+            if k2 != want_k2:
+                fail(f"search {name}: K2 launched {k2} times for {want_k2} renders")
+            times = []
+            for _ in range(SEARCH_REPS):
+                t = time.perf_counter()
+                search()
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t) * 1e3)
+            if not np.isfinite(H).all():
+                fail(f"search {name}: non-finite pose")
+            adds = adds_cm(torch, model_pts, torch.from_numpy(H).to(dev), T)
+            results[name] = {
+                "search_ms_median": float(np.median(times)), "search_ms": times,
+                "k1_launches": k1, "k2_launches": k2,
+                "batched_icp": [{"chains": b, "evaluations": e} for b, e in chain_evals],
+                "winner_template": cands[0][2], "scores": [c[0] for c in cands],
+                "adds_cm": adds}
+            if profile_path and name == list(scenes)[-1]:
+                results[name]["profile"] = profile_calls(torch, search, 2, profile_path, "search")
+            log(f"search {name}: median {np.median(times):.2f} ms over {SEARCH_REPS} warm calls "
+                f"(min {min(times):.2f}), K1 launches {k1}, K2 launches {k2}, winner template "
+                f"{cands[0][2]}, ADD-S {adds:.4f} cm (diag {diag_cm:.2f} cm)")
+    finally:
+        pe.icp_point_to_point_batched = orig_icp
+    b = results["b: near template view 11"]["adds_cm"]
+    if not b <= 0.1 * diag_cm:
+        fail(f"search near a template view: ADD-S {b:.4f} cm > 0.1 x diag ({0.1 * diag_cm:.3f} cm)")
+    return {"build": build, "scenes": results, "diag_cm": diag_cm,
+            "nn_inputs": nn_inputs, "raster_inputs": raster_inputs}
+
+
 def adds_cm(torch, pts, T_est, T_true) -> float:
     """ADD-S: mean distance from each estimated model point to the nearest
     true one (exact, no matmul distance form)."""
@@ -256,15 +440,16 @@ def adds_cm(torch, pts, T_est, T_true) -> float:
     return float(d.mean()) * 100.0
 
 
-def profile_frames(torch, frame, color, depths, T, gen, path: str) -> dict:
-    """Trace the first 5 frames of the sequence again from ``T`` (the start
-    pose): device busy share and device time by kernel."""
+def profile_calls(torch, fn, n: int, path: str, unit: str) -> dict:
+    """Trace ``n`` calls of ``fn`` with torch.profiler: device busy share and
+    device time by kernel, per ``unit`` (one call); the kernel table goes to
+    ``path``."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        for k in range(5):
-            T = frame(color, depths[k], T, mask_union=depths[k] > 0, generator=gen).T
+        for _ in range(n):
+            fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
     ka = prof.key_averages()
@@ -276,21 +461,22 @@ def profile_frames(torch, frame, color, depths, T, gen, path: str) -> dict:
     top = sorted(kern, key=dev_ms, reverse=True)[:12]
     with open(path, "w") as f:
         f.write(ka.table(sort_by="self_device_time_total", row_limit=60))
-    out = {"wall_ms_per_frame": wall_ms / 5, "device_busy_ms_per_frame": busy_ms / 5,
+    out = {f"wall_ms_per_{unit}": wall_ms / n, f"device_busy_ms_per_{unit}": busy_ms / n,
            "device_busy_share": busy_ms / wall_ms,
-           "top_device_ms_per_frame": {e.key[:60]: dev_ms(e) / 5 for e in top},
-           "kernels_per_frame": sum(e.count for e in kern) / 5}
-    log(f"profile (5 frames): {out['wall_ms_per_frame']:.2f} ms/frame wall, device busy "
-        f"{out['device_busy_ms_per_frame']:.2f} ms/frame ({100 * out['device_busy_share']:.1f}%), "
-        f"{out['kernels_per_frame']:.0f} kernels/frame")
+           f"top_device_ms_per_{unit}": {e.key[:60]: dev_ms(e) / n for e in top},
+           f"kernels_per_{unit}": sum(e.count for e in kern) / n}
+    log(f"profile ({n} x {unit}): {wall_ms / n:.2f} ms/{unit} wall, device busy "
+        f"{busy_ms / n:.2f} ms/{unit} ({100 * busy_ms / wall_ms:.1f}%), "
+        f"{out[f'kernels_per_{unit}']:.0f} kernels/{unit}")
     return out
 
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--out", help="also write the JSON summary to this file")
-    p.add_argument("--profile", help="also trace 5 frames with torch.profiler and write "
-                   "the kernel table to this file")
+    p.add_argument("--profile", metavar="FILE.txt",
+                   help="also trace 5 frames with torch.profiler and write the kernel table "
+                   "to this file, and 2 searches to FILE_search.txt")
     args = p.parse_args(argv)
 
     try:
@@ -300,6 +486,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke test needs an NVIDIA GPU")
     try:
+        from poseestimator_tpu_torch import kernel_cases as kc
         from poseestimator_tpu_torch import kernels
         from poseestimator_tpu_torch.device import resolve_device
         from poseestimator_tpu_torch.geom3d import fused_nn as fnn
@@ -332,11 +519,11 @@ def main(argv=None) -> int:
     # scene: the bench box one motion delta per frame from z = 0.5 m
     intr = Intrinsics.from_fov(60.0, 640, 480)
     intr_r = intr.scaled(2)
-    verts = box_vertices()
+    verts = kc.box_vertices()
     diag = float(np.linalg.norm(verts.max(0) - verts.min(0)))
     win = window_for_object(intr_r, diag, 0.5)
     mesh_v = torch.from_numpy(verts).to(dev)
-    mesh_f = torch.from_numpy(pad_faces(BOX_FACES, 256)).to(dev)
+    mesh_f = torch.from_numpy(pad_faces(kc.BOX_FACES, 256)).to(dev)
     T0 = torch.eye(4, device=dev)
     T0[2, 3] = 0.5
 
@@ -347,7 +534,8 @@ def main(argv=None) -> int:
         f"FMA-free issue ceiling {k1['issue_ms']:.5f} ms, library_ms (torch.cdist(q, d).min(1), "
         f"TF32 off; the port never calls it) {k1['library_ms']:.5f} ms")
     log(f"K1 16384x16384: device {k1['16384x16384']['device_ms']:.5f} ms, "
-        f"FMA-free issue ceiling {k1['16384x16384']['issue_ms']:.5f} ms")
+        f"FMA-free issue ceiling {k1['16384x16384']['issue_ms']:.5f} ms, library_ms "
+        f"{k1['16384x16384']['library_ms']:.5f} ms")
     cm = k1["cost_model"]
     log(f"K1 cost at N=4096 over M=512..16384: fixed {cm['fixed_ms']:.5f} ms + pairs at "
         f"{cm['pairs_per_s']:.4g}/s ({100 * cm['share_of_issue_ceiling']:.1f}% of the FMA-free "
@@ -358,7 +546,7 @@ def main(argv=None) -> int:
 
     # 5. main path
     model = init_random_(YOLO11Seg(nc=5, scale="n"), torch.Generator().manual_seed(0))
-    frame = FusedFrame(model, verts, pad_faces(BOX_FACES, 256), intr, win_hw=win,
+    frame = FusedFrame(model, verts, pad_faces(kc.BOX_FACES, 256), intr, win_hw=win,
                        imgsz=640, max_det=32, device=dev)
     rng = np.random.default_rng(0)
     color = torch.from_numpy(rng.integers(0, 255, (480, 640, 3), dtype=np.uint8)).to(dev)
@@ -390,7 +578,7 @@ def main(argv=None) -> int:
     k1_launches = fnn.fused_nn_stats.launches
     k2_launches = rs.raster_stats.launches
 
-    pts = torch.from_numpy(box_surface(np.random.default_rng(1), 2000)).to(dev)
+    pts = torch.from_numpy(box_surface(np.random.default_rng(1), 2000, kc.BOX_HALF)).to(dev)
     adds = [adds_cm(torch, pts, Te, Tt) for Te, Tt in zip(poses, T_true)]
     adds_mean = float(np.mean(adds))
     log(f"main path: {FRAMES} frames, median frame {np.median(frame_ms):.3f} ms "
@@ -418,8 +606,24 @@ def main(argv=None) -> int:
     flag = torch.zeros((), device=dev)
     read_us = call_ms(torch, lambda: bool(flag + 1 > 0), reps=200) * 1e3
 
+    # 6. init path: the template search, then the kernels at its shapes
+    with tempfile.TemporaryDirectory() as tmp:
+        search = search_phase(torch, dev, kc, fnn, rs, intr, tmp, profile_path=(
+            "{0}_search{1}".format(*os.path.splitext(args.profile)) if args.profile else None))
+    search_k = check_search_shapes(torch, fnn, rs, search.pop("nn_inputs"),
+                                   search.pop("raster_inputs"))
+
     if args.profile:
-        summary_prof = profile_frames(torch, frame, color, depths, T0, gen, args.profile)
+        # the first 5 frames of the sequence again from the start pose
+        state = {"T": T0, "k": 0}
+
+        def next_frame():
+            k = state["k"]
+            state["T"] = frame(color, depths[k], state["T"], mask_union=depths[k] > 0,
+                               generator=gen).T
+            state["k"] = k + 1
+
+        summary_prof = profile_calls(torch, next_frame, 5, args.profile, "frame")
     summary = {
         "card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
         "build_s": build_s, "frames": FRAMES, "window": list(win),
@@ -429,6 +633,7 @@ def main(argv=None) -> int:
         "icp_n_iters_mean": float(np.mean(n_iters)), "icp_n_iters": n_iters,
         "adds_mean_cm": adds_mean, "adds_max_cm": float(max(adds)),
         "k1_launches": k1_launches, "k2_launches": k2_launches,
+        "search": search,
     }
     log(f"track step alone: {track_ms:.3f} ms; one host read: {read_us:.1f} us")
     k2_main = k2["shapes"][k2["main"]]
@@ -440,7 +645,10 @@ def main(argv=None) -> int:
          "device_ms": k1["device_ms"], "call_ms": k1["call_ms"], "plain_ms": k1["plain_ms"],
          "bound_ms": k1["bound"][0], "bound_by": k1["bound"][1],
          "issue_bound_ms": k1["issue_ms"], "library_ms": k1["library_ms"],
-         "shape": "4096x4096", "other_shapes": {"16384x16384": k1["16384x16384"]},
+         "shape": "4096x4096",
+         "other_shapes": {"16384x16384": k1["16384x16384"],
+                          **{f"search {k}": v for k, v in search_k["K1"].items()}},
+         "search_launches": {n: r["k1_launches"] for n, r in search["scenes"].items()},
          "cost_model": k1["cost_model"]},
         {"name": "K2 raster", "route": "cuda",
          "source": "poseestimator_tpu_torch/csrc/raster.cu",
@@ -449,10 +657,12 @@ def main(argv=None) -> int:
          "device_ms": k2_main["device_ms"], "call_ms": k2_main["call_ms"],
          "plain_ms": k2_main["plain_ms"], "bound_ms": k2_main["bound"][0],
          "bound_by": k2_main["bound"][1], "library_ms": None, "shape": k2["main"],
-         "other_shapes": {k: {"device_ms": v["device_ms"], "call_ms": v["call_ms"],
-                              "plain_ms": v["plain_ms"], "bound_ms": v["bound"][0],
-                              "bound_by": v["bound"][1]}
-                          for k, v in k2["shapes"].items() if k != k2["main"]}},
+         "other_shapes": {**{k: {"device_ms": v["device_ms"], "call_ms": v["call_ms"],
+                                 "plain_ms": v["plain_ms"], "bound_ms": v["bound"][0],
+                                 "bound_by": v["bound"][1]}
+                             for k, v in k2["shapes"].items() if k != k2["main"]},
+                          **{f"search {k}": v for k, v in search_k["K2"].items()}},
+         "search_launches": {n: r["k2_launches"] for n, r in search["scenes"].items()}},
     ]}
     summary["kernels"] = kernels_line["kernels"]
     if args.profile:
@@ -462,7 +672,8 @@ def main(argv=None) -> int:
             json.dump(summary, f, indent=1)
     log(f"card: {card}")
     log(json.dumps({k: v for k, v in summary.items() if k not in ("frame_ms", "icp_n_iters",
-                                                                  "kernels")}))
+                                                                  "kernels", "search")}))
+    log(json.dumps({"search": search}))
     log(json.dumps(kernels_line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

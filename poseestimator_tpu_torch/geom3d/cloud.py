@@ -6,6 +6,7 @@ into a smaller padded buffer, so every shape in the tracking step is static.
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
+from typing import Optional
 
 import torch
 
@@ -18,6 +19,7 @@ class PointCloud:
 
     points: torch.Tensor  # (N, 3) float32
     valid: torch.Tensor  # (N,) bool
+    normals: Optional[torch.Tensor] = None  # (N, 3) float32 unit, or None
 
     @property
     def capacity(self) -> int:
@@ -27,9 +29,43 @@ class PointCloud:
         """Number of valid points (0-d int tensor on the cloud's device)."""
         return self.valid.sum()
 
+    def centroid(self) -> torch.Tensor:
+        """Mean of the valid points; zeros for an empty cloud."""
+        return centroid(self.points, self.valid)
+
     def transform(self, T: torch.Tensor) -> "PointCloud":
-        return replace(self, points=transform_points(T, self.points))
+        normals = None if self.normals is None else self.normals @ T[:3, :3].T
+        return replace(self, points=transform_points(T, self.points), normals=normals)
 
     def mask_where(self, keep: torch.Tensor) -> "PointCloud":
         """Intersect the validity mask with ``keep`` (no data movement)."""
         return replace(self, valid=self.valid & keep)
+
+
+def centroid(points: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Mean of the valid rows of ``points`` (..., N, 3) -> (..., 3)."""
+    w = valid.to(points.dtype)
+    n = torch.clamp(w.sum(-1), min=1.0)
+    return (points * w[..., None]).sum(-2) / n[..., None]
+
+
+def compact(cloud: PointCloud, capacity: int) -> PointCloud:
+    """Gather the valid points, in order, to the front of a ``capacity``-row
+    buffer; valid points beyond ``capacity`` are dropped."""
+    order = torch.argsort((~cloud.valid).to(torch.uint8), stable=True)
+    take_n = min(capacity, cloud.capacity)
+    idx = order[:take_n]
+    pad = capacity - take_n
+
+    def take(a):
+        if a is None:
+            return None
+        g = a[idx]
+        if pad:
+            g = torch.cat([g, g.new_zeros((pad,) + g.shape[1:])])
+        return g
+
+    n_valid = torch.clamp(cloud.count(), max=capacity)
+    new_valid = torch.arange(capacity, device=cloud.points.device) < n_valid
+    return PointCloud(points=take(cloud.points) * new_valid[:, None].to(cloud.points.dtype),
+                      valid=new_valid, normals=take(cloud.normals))

@@ -1,5 +1,6 @@
-"""Uniform sampling without replacement (counterpart of
-``random_sample`` / ``_stratified_sample`` in
+"""Uniform sampling without replacement and voxel-grid downsampling
+(counterpart of ``random_sample``, ``_stratified_sample``,
+``voxel_down_sample`` and ``voxel_coverage`` in
 ``poseestimator_tpu/geom3d/sampling.py``).
 
 Randomness comes from an explicit ``torch.Generator``, or is injected as
@@ -15,9 +16,10 @@ from typing import Optional
 
 import torch
 
-from .cloud import PointCloud
+from .cloud import PointCloud, compact
 
 STRAT_BIN = 64  # bin width of the stratified sampler
+SENTINEL = 2 ** 30  # voxel coordinate of invalid points
 
 
 def uses_stratified(capacity: int, n: int) -> bool:
@@ -98,3 +100,57 @@ def _stratified_sample(cloud: PointCloud, n: int, g: torch.Tensor,
     sel = torch.clamp(sidx[bsel, rank], max=N - 1)
     new_valid = (j < target) & torch.isfinite(sorted_score[bsel, rank])
     return PointCloud(points=cloud.points[sel], valid=new_valid)
+
+
+def _voxel_coords(points: torch.Tensor, valid: torch.Tensor, voxel_size) -> torch.Tensor:
+    coords = torch.floor(points / voxel_size).to(torch.int32)
+    return torch.where(valid[..., None], coords, torch.full_like(coords, SENTINEL))
+
+
+def voxel_down_sample(cloud: PointCloud, voxel_size: float,
+                      capacity: Optional[int] = None) -> PointCloud:
+    """Mean point of each occupied voxel (Open3D ``voxel_down_sample``: the
+    grid anchored at the cloud's min bound), voxels in lexicographic order of
+    their integer coordinates, compacted to the front of a ``capacity``-row
+    buffer (default: the input capacity).
+
+    The JAX package keeps the first ``capacity + 1`` unique coordinate rows
+    (``jnp.unique(size=capacity + 1, fill_value=SENTINEL)``, the invalid
+    points' sentinel row sorting last) and drops the points of every voxel
+    past them; the port emulates exactly that on ``torch.unique(dim=0)``,
+    which sorts rows the same way.
+    """
+    cap = cloud.capacity if capacity is None else int(capacity)
+    pts, valid = cloud.points, cloud.valid
+    lo = torch.where(valid[:, None], pts, torch.full_like(pts, 1e30)).amin(0)
+    coords = _voxel_coords(pts - lo, valid, voxel_size)
+    uniq, inv = torch.unique(coords, dim=0, return_inverse=True)
+    n_seg = cap + 1
+    if uniq.shape[0] < n_seg:
+        uniq = torch.cat([uniq, uniq.new_full((n_seg - uniq.shape[0], 3), SENTINEL)])
+    uniq = uniq[:n_seg]
+    hit = inv < n_seg  # the point's voxel survived the capacity cut
+    w = (valid & hit).to(torch.float32)
+    seg = torch.where(hit, inv, torch.zeros_like(inv))
+    counts = torch.zeros(n_seg, dtype=torch.float32, device=pts.device).index_add_(0, seg, w)
+    sums = torch.zeros((n_seg, 3), dtype=torch.float32, device=pts.device).index_add_(
+        0, seg, pts * w[:, None])
+    means = sums / torch.clamp(counts, min=1.0)[:, None]
+    voxel_ok = (counts > 0) & (uniq != SENTINEL).any(1)
+    return compact(PointCloud(points=means[:cap], valid=voxel_ok[:cap]), cap)
+
+
+def voxel_coverage(points: torch.Tensor, valid: torch.Tensor, voxel_size) -> torch.Tensor:
+    """Number of distinct occupied voxels of a grid anchored at the origin,
+    per cloud of a (..., N, 3) batch -> (...,) int64. The rows are sorted
+    lexicographically per cloud (three stable sorts) and counted where they
+    change, so any int32 coordinates count exactly."""
+    coords = _voxel_coords(points, valid, voxel_size)
+    order = torch.arange(coords.shape[-2], device=coords.device).expand(coords.shape[:-1])
+    for col in (2, 1, 0):
+        key = coords[..., col].gather(-1, order)
+        order = order.gather(-1, torch.argsort(key, dim=-1, stable=True))
+    rows = coords.gather(-2, order[..., None].expand(coords.shape))
+    new = torch.ones(rows.shape[:-1], dtype=torch.bool, device=rows.device)
+    new[..., 1:] = (rows[..., 1:, :] != rows[..., :-1, :]).any(-1)
+    return (new & (rows != SENTINEL).any(-1)).sum(-1)

@@ -1,6 +1,6 @@
-"""SE(3) helpers (counterpart of ``poseestimator_tpu/geom3d/se3.py``: the
-subset the tracking step uses). Float32 throughout; matrix products run in
-full float32 under the numeric policy of ``device.py``."""
+"""SE(3) helpers (counterpart of ``poseestimator_tpu/geom3d/se3.py``).
+Float32 throughout; matrix products run in full float32 under the numeric
+policy of ``device.py``."""
 from __future__ import annotations
 
 import torch
@@ -20,8 +20,8 @@ def inv_T(T: torch.Tensor) -> torch.Tensor:
 
 
 def transform_points(T: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
-    """Apply a 4x4 transform to (..., 3) points."""
-    return pts @ T[:3, :3].T + T[:3, 3]
+    """Apply a (..., 4, 4) transform to (..., N, 3) points."""
+    return pts @ T[..., :3, :3].transpose(-1, -2) + T[..., None, :3, 3]
 
 
 def axis_angle_to_R(axis: torch.Tensor, angle) -> torch.Tensor:
@@ -40,10 +40,60 @@ def axis_angle_to_R(axis: torch.Tensor, angle) -> torch.Tensor:
 
 
 def quat_to_R(q: torch.Tensor) -> torch.Tensor:
-    """Quaternion (w, x, y, z) to rotation matrix."""
-    w, x, y, z = q[0], q[1], q[2], q[3]
+    """Quaternion (..., 4) as (w, x, y, z) to rotation matrix (..., 3, 3)."""
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
     return torch.stack([
-        torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)]),
-        torch.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)]),
-        torch.stack([2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)]),
-    ])
+        torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)], -1),
+        torch.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)], -1),
+        torch.stack([2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)], -1),
+    ], -2)
+
+
+def pca_axes(points: torch.Tensor, valid: torch.Tensor):
+    """Principal axes of the valid rows of (..., N, 3) points: ``(R (..., 3,
+    3), s (..., 3))``, R's columns sorted by decreasing variance with
+    det(R) = +1, s the singular values. Column signs are the eigensolver's
+    (they may differ from LAPACK-through-XLA's)."""
+    w = valid.to(points.dtype)
+    n = w.sum(-1)
+    c = (points * w[..., None]).sum(-2) / torch.clamp(n, min=1.0)[..., None]
+    X = (points - c[..., None, :]) * w[..., None]
+    cov = (X.transpose(-1, -2) @ X) / torch.clamp(n - 1.0, min=1.0)[..., None, None]
+    vals, vecs = torch.linalg.eigh(cov)  # ascending
+    vals = vals.flip(-1)
+    R = vecs.flip(-1)
+    flip = torch.where(torch.linalg.det(R) < 0, -1.0, 1.0).to(R.dtype)
+    R = torch.cat([R[..., :2], R[..., 2:] * flip[..., None, None]], dim=-1)
+    return R, torch.sqrt(torch.clamp(vals, min=0.0))
+
+
+def enforce_upright_pose_y_up(T: torch.Tensor, tol_deg: float = 30.0) -> torch.Tensor:
+    """Snap the model's local +Y axis toward world -Y by repeated 90-degree
+    rotations about the model's Z: the first of R, R Rz, R Rz^2, R Rz^3 whose
+    column 1 is within ``tol_deg`` of (0, -1, 0), else R unchanged."""
+    R = T[:3, :3]
+    rz90 = torch.tensor([[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0]],
+                        dtype=R.dtype, device=R.device)
+    Rs = [R]
+    for _ in range(3):
+        Rs.append(Rs[-1] @ rz90)
+    Rs = torch.stack(Rs)
+    up = Rs[:, :, 1]
+    c = -up[:, 1] / torch.clamp(torch.linalg.vector_norm(up, dim=1), min=1e-12)
+    ok = c >= torch.cos(torch.deg2rad(torch.tensor(tol_deg, dtype=R.dtype)))
+    out = T.clone()
+    out[:3, :3] = Rs[torch.argmax(ok.to(torch.uint8))]  # 0 when none qualifies
+    return out
+
+
+def look_at(eye, target, up) -> torch.Tensor:
+    """World-to-camera transform of a right-handed camera with +Z pointing
+    back toward the viewer (OpenGL convention)."""
+    eye, target, up = (torch.as_tensor(a, dtype=torch.float32) for a in (eye, target, up))
+    z = eye - target
+    z = z / torch.clamp(torch.linalg.vector_norm(z), min=1e-12)
+    x = torch.linalg.cross(up, z)
+    x = x / torch.clamp(torch.linalg.vector_norm(x), min=1e-12)
+    y = torch.linalg.cross(z, x)
+    R = torch.stack([x, y, z])
+    return make_T(R, -(R @ eye))

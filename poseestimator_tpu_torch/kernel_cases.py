@@ -17,7 +17,22 @@ from __future__ import annotations
 import numpy as np
 
 from .geom3d.camera import Intrinsics
+from .geom3d.se3 import look_at
 from .render.mesh import make_icosphere
+
+# the bench box CAD: half extents (m) and its 12 faces
+BOX_HALF = (0.06, 0.04, 0.025)
+BOX_FACES = np.array(
+    [[0, 1, 3], [0, 3, 2], [4, 6, 7], [4, 7, 5], [0, 4, 5], [0, 5, 1],
+     [2, 3, 7], [2, 7, 6], [0, 2, 6], [0, 6, 4], [1, 5, 7], [1, 7, 3]], np.int32)
+# OpenGL camera (look_at output) to vision camera
+GL_TO_CV = np.diag([1.0, -1.0, -1.0, 1.0]).astype(np.float32)
+
+
+def box_vertices(half=BOX_HALF) -> np.ndarray:
+    bx, by, bz = half
+    return np.array([[sx * bx, sy * by, sz * bz] for sx in (-1, 1) for sy in (-1, 1)
+                     for sz in (-1, 1)], np.float32)
 
 NNCase = tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]
 
@@ -155,7 +170,9 @@ def raster_cases(seed: int = 2) -> dict[str, dict]:
     * a chunk of 32 faces none of which touches the window, then a chunk all
       of whose faces cover it whole, then a ragged tail;
     * a 61 x 45 window (neither side a multiple of the tile);
-    * the 4096-face icosphere over the 320 x 240 half-resolution frame.
+    * the 4096-face icosphere over the 320 x 240 half-resolution frame;
+    * a template view of the bench box: its 12 faces over a full 640 x 480
+      frame from twice its diagonal, as the template database renders it.
     """
     rng = np.random.default_rng(seed)
     eye = np.eye(4, dtype=np.float32)
@@ -189,4 +206,12 @@ def raster_cases(seed: int = 2) -> dict[str, dict]:
     intr = Intrinsics.from_fov(60.0, 640, 480).scaled(2)
     out["icosphere 4096 faces, 240x320 frame"] = dict(
         vertices=sv, faces=sf[:4096], T=T, intr=intr, H=intr.height, W=intr.width)
+
+    bv = box_vertices()
+    eye_dir = np.array([0.0, 1.0, 1.0]) / np.sqrt(2.0)
+    dist = 2.0 * float(np.linalg.norm(bv.max(0) - bv.min(0)))
+    T = GL_TO_CV @ look_at(eye_dir * dist, np.zeros(3), [0.0, 1.0, 0.0]).numpy()
+    intr = Intrinsics.from_fov(60.0, 640, 480)
+    out["bench box template view, 480x640 frame"] = dict(
+        vertices=bv, faces=BOX_FACES, T=T.astype(np.float32), intr=intr, H=480, W=640)
     return out

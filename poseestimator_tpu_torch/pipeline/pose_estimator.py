@@ -1,0 +1,474 @@
+"""Global pose initialisation by template search (counterpart of
+``poseestimator_tpu/pipeline/pose_estimator.py``, single-device path).
+
+``PoseEstimator`` loads the CAD and its template database (rendering it when
+missing), voxel-downsamples every template and computes its FPFH features
+once. ``find_best_template_candidates`` then registers an observed cloud
+against every template:
+
+1. the observation is sampled (4096 and 2048 points), voxel-downsampled with
+   FPFH features, and splatted (``splat=0``) into the scoring view;
+2. per template, 5 hypotheses: the 4 sign choices of a PCA pre-alignment and
+   FPFH matching -> RANSAC -> TEASER;
+3. all template x hypothesis chains run one batched coarse ICP against the
+   voxel cloud (one K1 launch per batched evaluation) and are scored by the
+   residual/coverage ``alignment_score``;
+4. the coarse-best chain of each template is polished by render-ICP: the CAD
+   is rendered at the chain's pose (K2, one launch per chain and stage), the
+   predicted view is registered to the observed cloud with a shrinking
+   correspondence radius (1.0, 0.3 voxel at quarter resolution, 0.1 at the
+   scoring resolution), and the result is scored by rendering once more and
+   comparing depth and silhouette with the observation.
+
+The lowest score wins. Camera resolutions whose quarter-resolution view has
+at least 4096 pixels run the relaxed early-exit regime of the JAX package
+(half-size clouds and looser tolerances in the early stages); smaller
+cameras, or ``strict=True``, keep the 1e-6 tolerances everywhere.
+
+Randomness comes from a ``torch.Generator``; ``draws`` injects the samplers'
+draws (``"dense"``, ``"half"``, ``"views"`` keyed by (stage, chain)) and
+RANSAC's uniforms (``"ransac"``, (templates, 2048, 3)).
+"""
+from __future__ import annotations
+
+from dataclasses import replace
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from ..geom3d.camera import Intrinsics, backproject_depth
+from ..geom3d.cloud import PointCloud, centroid
+from ..geom3d.fpfh import compute_fpfh
+from ..geom3d.metrics import alignment_score
+from ..geom3d.normals import estimate_normals
+from ..geom3d.sampling import random_sample, voxel_down_sample
+from ..geom3d.se3 import pca_axes, transform_points
+from ..registration.features import match_features
+from ..registration.icp import icp_point_to_point_batched
+from ..registration.kabsch import matmul_small
+from ..registration.ransac import ransac_registration
+from ..registration.teaser import TeaserParams, teaser_solve
+from ..render.mesh import TriangleMesh, decimate_to_faces, pad_faces
+from ..render.points import render_depth
+from ..render.raster import render_depth_mesh
+from ..templates.db import load_templates
+from .window import window_dims, window_for_object, window_gather, window_origin
+
+SEARCH_CAP = 1024  # per-cloud point budget after the voxel downsample
+# face budget of the predicted-view raster; larger CADs are decimated once
+RASTER_FACE_CAP = 4096
+RANSAC_ITERS = 2048
+# the 4 det = +1 sign choices of a PCA frame's axes
+_PCA_SIGNS = ((1.0, 1.0, 1.0), (1.0, -1.0, -1.0), (-1.0, 1.0, -1.0), (-1.0, -1.0, 1.0))
+
+
+def _f32(x) -> float:
+    """``x`` rounded to float32, as the JAX package's traced scalars are."""
+    return float(np.float32(x))
+
+
+def raster_assets(mesh: TriangleMesh, cap: int = RASTER_FACE_CAP, device="cuda"):
+    """``(vertices (V, 3) f32, faces (F, 3) i64)`` for the predicted-view
+    raster: decimated to ``cap`` faces, padded to a multiple of 256."""
+    m = decimate_to_faces(mesh, cap)
+    f = pad_faces(m.faces, -(-max(len(m.faces), 1) // 256) * 256)
+    return (torch.from_numpy(np.asarray(m.vertices, np.float32)).to(device),
+            torch.from_numpy(f.astype(np.int64)).to(device))
+
+
+def _extract_fpfh(cloud: PointCloud, voxel_size, outward: bool = False):
+    """Normals (radius = voxel, 30 neighbours) and FPFH (radius = 5 voxel,
+    100 neighbours). Normals point away from the object: toward the camera
+    origin for camera-frame clouds, away from the centroid for model-frame
+    templates (``outward=True``)."""
+    if outward:
+        c = estimate_normals(cloud, radius=voxel_size, max_nn=30,
+                             orient_towards=cloud.centroid())
+        c = replace(c, normals=-c.normals)
+    else:
+        c = estimate_normals(cloud, radius=voxel_size, max_nn=30)
+    feats, _ = compute_fpfh(c, radius=_f32(np.float32(voxel_size) * np.float32(5.0)), max_nn=100)
+    return c, feats
+
+
+def _as_intrinsics(intr, K) -> Intrinsics:
+    if isinstance(intr, Intrinsics):
+        return intr
+    if hasattr(intr, "ppx"):  # a RealSense-style intrinsics object
+        return Intrinsics(fx=float(intr.fx), fy=float(intr.fy), cx=float(intr.ppx),
+                          cy=float(intr.ppy), width=int(intr.width), height=int(intr.height))
+    raise TypeError(f"cannot interpret intrinsics {type(intr)}")
+
+
+class PoseEstimator:
+    """Template-search pose initialisation for one CAD model.
+
+    ``device`` defaults to the card and raises when there is none;
+    ``device="cpu"`` runs the kernels' plain versions. ``mesh_devices`` (the
+    JAX package's template-axis sharding) is not ported.
+    """
+
+    def __init__(self, cad_path: str, pcd_path: str, intr, K: Optional[np.ndarray] = None,
+                 target_points: int = 200, voxel_size: float = 0.05, seed: int = 0,
+                 view_set: str = "reduced", mesh_devices=None, search_window="auto",
+                 search_score_res: int = 2, search_polish: int = 1, search_final_topk: int = 6,
+                 device: str | torch.device = "cuda"):
+        if mesh_devices is not None:
+            raise NotImplementedError("the sharded template search is not ported")
+        mesh = TriangleMesh.load(cad_path)
+        if np.max(mesh.extent) >= 1.0:  # millimetres -> metres
+            mesh = mesh.scale(0.001, center=np.zeros(3))
+        self._setup(mesh, intr, K, target_points, voxel_size, seed, search_window,
+                    search_score_res, search_polish, search_final_topk, device)
+        self.templates = load_templates(pcd_path, cad_path, view_set=view_set, device=self.device)
+        self._prepare_templates()
+
+    @classmethod
+    def from_prepared(cls, mesh: TriangleMesh, intr, tpl_points, tpl_valid, tpl_fpfh,
+                      K: Optional[np.ndarray] = None, target_points: int = 200,
+                      voxel_size: float = 0.05, seed: int = 0, search_window="auto",
+                      search_score_res: int = 2, search_polish: int = 1,
+                      search_final_topk: int = 6, device: str | torch.device = "cuda"):
+        """An estimator on already prepared templates: the voxel clouds
+        (T, C, 3) / (T, C) and their FPFH features (T, C, 33), e.g. the JAX
+        package's ``_tpl_points``, ``_tpl_valid``, ``_tpl_fpfh`` as numpy.
+        ``mesh`` is the CAD in metres."""
+        self = cls.__new__(cls)
+        self._setup(mesh, intr, K, target_points, voxel_size, seed, search_window,
+                    search_score_res, search_polish, search_final_topk, device)
+        self.templates = None
+        as_t = lambda a: torch.as_tensor(np.array(a), device=self.device)  # noqa: E731
+        self._tpl_points = as_t(tpl_points).to(torch.float32)
+        self._tpl_valid = as_t(tpl_valid).to(torch.bool)
+        self._tpl_fpfh = as_t(tpl_fpfh).to(torch.float32)
+        self._search_cap = int(min(SEARCH_CAP, max(512, 4 * self._tpl_points.shape[1])))
+        return self
+
+    def _setup(self, mesh, intr, K, target_points, voxel_size, seed, search_window,
+               search_score_res, search_polish, search_final_topk, device):
+        self.device = resolve_device(device)
+        self.intr = _as_intrinsics(intr, K)
+        self.K = self.intr.K if K is None else np.asarray(K).reshape(3, 3)
+        self.target_points = target_points
+        self.voxel_size = float(voxel_size)
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        # "auto" | None | (h, w) window of the scoring view (window.py)
+        self.search_window = search_window
+        self.search_score_res = int(search_score_res)  # 2: half-resolution scoring
+        self.search_polish = int(search_polish)  # polished hypotheses per template
+        # the final polish stage runs on this many best chains (None: all)
+        self.search_final_topk = int(search_final_topk) if search_final_topk else None
+        self.mesh = mesh
+        self._mesh_v, self._mesh_f = raster_assets(mesh, device=self.device)
+
+    @torch.no_grad()
+    def _prepare_templates(self):
+        """Voxel downsample + FPFH of every template, stacked. The template
+        axis is sized to the largest voxel count (a 128 multiple): every
+        search cost scales with the padded capacity, and the observation's
+        voxel set gets 4x that."""
+        downs, feats = [], []
+        for i in range(self.templates.count):
+            down = voxel_down_sample(self.templates.cloud(i), self.voxel_size, capacity=SEARCH_CAP)
+            down, f = _extract_fpfh(down, self.voxel_size, outward=True)
+            downs.append(down)
+            feats.append(f)
+        n_max = max(int(d.valid.sum()) for d in downs)
+        tpl_cap = min(SEARCH_CAP, max(128, -(-n_max // 128) * 128))
+        self._tpl_points = torch.stack([d.points[:tpl_cap] for d in downs])
+        self._tpl_valid = torch.stack([d.valid[:tpl_cap] for d in downs])
+        self._tpl_fpfh = torch.stack(feats)[:, :tpl_cap]
+        self._search_cap = int(min(SEARCH_CAP, max(512, 4 * tpl_cap)))
+
+    def find_best_template_teaser(self, dst_cloud: PointCloud, keep_pre_icp: bool = False,
+                                  mask=None, draws: Optional[dict] = None):
+        """``(T (4, 4) np.ndarray, src_down PointCloud)`` of the best
+        template."""
+        H, src_down, _ = self.find_best_template_candidates(dst_cloud, keep_pre_icp, mask, draws)
+        return H, src_down
+
+    @torch.no_grad()
+    def find_best_template_candidates(self, dst_cloud: PointCloud, keep_pre_icp: bool = False,
+                                      mask=None, draws: Optional[dict] = None):
+        """Search every template: ``(T, src_down, candidates)`` with the
+        candidates ``[(score, T, template_index), ...]`` best first. ``mask``
+        (H, W): the detection mask, scored as a dense observed silhouette.
+        ``keep_pre_icp`` returns the winner's pre-polish hypothesis."""
+        dev = self.device
+        if mask is not None:
+            obs_sil, have_mask = torch.as_tensor(mask, device=dev).to(torch.bool), True
+        else:
+            obs_sil = torch.zeros((self.intr.height, self.intr.width), dtype=torch.bool, device=dev)
+            have_mask = False
+        win = self.search_window
+        if win == "auto":
+            # the window bucket sized to this observation's distance
+            pts = dst_cloud.points.cpu().numpy()
+            val = dst_cloud.valid.cpu().numpy()
+            z = float(np.median(pts[val, 2])) if val.any() else 1.0
+            win = window_for_object(self.intr.scaled(self.search_score_res),
+                                    float(np.linalg.norm(self.mesh.extent)), z)
+        H_pre, H_ref, best, scores, Ts_all = search_templates(
+            dst_cloud.points.to(dev), dst_cloud.valid.to(dev), self._tpl_points, self._tpl_valid,
+            self._tpl_fpfh, self._mesh_v, self._mesh_f, self.intr, obs_sil, have_mask,
+            self.voxel_size, self.generator, win_hw=win, score_res=self.search_score_res,
+            n_polish=self.search_polish, n_final=self.search_final_topk,
+            dst_cap=self._search_cap, draws=draws)
+        H = (H_pre if keep_pre_icp else H_ref).cpu().numpy()
+        i = int(best)
+        scores = scores.cpu().numpy()
+        Ts_all = Ts_all.cpu().numpy()
+        src_down = PointCloud(points=self._tpl_points[i], valid=self._tpl_valid[i])
+        candidates = [(float(scores[j]), Ts_all[j], int(j)) for j in np.argsort(scores, kind="stable")]
+        return H, src_down, candidates
+
+    @torch.no_grad()
+    def create_template_from_H(self, T_m2c, target_points: Optional[int] = None) -> PointCloud:
+        """The CAD rendered at ``T_m2c`` over the full frame, back-projected
+        and sampled to ``target_points`` camera-frame points."""
+        n = int(target_points or self.target_points)
+        T = torch.as_tensor(np.asarray(T_m2c), dtype=torch.float32, device=self.device)
+        depth = render_depth_mesh(self._mesh_v, self._mesh_f, T, self.intr, near=0.01, far=5.0)
+        cloud = backproject_depth(depth, self.intr, depth_min=0.01, depth_max=5.0)
+        return random_sample(cloud, n, self.generator)
+
+
+def _pca_hypotheses(src_pts, src_valid, dst: PointCloud) -> torch.Tensor:
+    """(T, 4, 4, 4) rigid hypotheses aligning each src's centroid and PCA
+    axes to dst's under the 4 right-handed sign choices. The set does not
+    depend on the eigensolver's column signs; its order does."""
+    c_s, c_d = centroid(src_pts, src_valid), dst.centroid()
+    R_s, _ = pca_axes(src_pts, src_valid)
+    R_d, _ = pca_axes(dst.points, dst.valid)
+    signs = torch.tensor(_PCA_SIGNS, dtype=torch.float32, device=src_pts.device)
+    R0 = R_d @ (R_s[:, None] * signs[None, :, None, :]).transpose(-1, -2)  # R_d diag(s) R_s^T
+    t0 = c_d - (R0 @ c_s[:, None, :, None])[..., 0]
+    T = torch.eye(4, dtype=torch.float32, device=src_pts.device).expand(R0.shape[:2] + (4, 4))
+    T = T.clone()
+    T[..., :3, :3] = R0
+    T[..., :3, 3] = t0
+    return T
+
+
+def _prep_dst(dst_pts, dst_valid, intr: Intrinsics, mask_sil, have_mask, voxel, gen, draws,
+              score_res: int = 2, dst_cap: int = SEARCH_CAP):
+    """The observation side, once per search: dense (4096) and half (2048)
+    working sets sampled uniformly, the voxel + FPFH set, and the observed
+    depth splatted with ``splat=0`` into the scoring view (each sample
+    claims only its own pixel: sparse but unbiased)."""
+    dst = PointCloud(points=dst_pts, valid=dst_valid)
+    dst_dense = random_sample(dst, 4096, gen, draws.get("dense"))
+    dst_half = random_sample(dst, 2048, gen, draws.get("half"))
+    dst_down = voxel_down_sample(dst, voxel, capacity=dst_cap)
+    dst_down, dst_feats = _extract_fpfh(dst_down, voxel)
+    intr_r = intr.scaled(score_res)
+    eye = torch.eye(4, dtype=torch.float32, device=dst_pts.device)
+    obs_depth = render_depth(dst_dense.points, dst_dense.valid, eye, intr_r, near=0.01, far=5.0,
+                             splat=0)
+    Hr, Wr, sr = intr_r.height, intr_r.width, score_res
+    if have_mask:  # the detection mask any-pooled to the scoring resolution
+        mask_sil_r = mask_sil[: Hr * sr, : Wr * sr].reshape(Hr, sr, Wr, sr).any(3).any(1)
+    else:
+        mask_sil_r = obs_depth > 0
+    return dst_dense, dst_half, dst_down, dst_feats, obs_depth, mask_sil_r
+
+
+def _score_templates(prep, tpl_pts, tpl_valid, tpl_fpfh, mesh_v, mesh_f, intr: Intrinsics,
+                     have_mask, voxel, gen, draws, win_hw="auto", score_res: int = 2,
+                     n_polish: int = 1, n_final=None, strict: bool = False):
+    """Score every template against the prepared observation: ``(H_pre (T,
+    4, 4), H_ref (T, 4, 4), scores (T,))``."""
+    dst_dense, dst_half, dst_down, dst_feats, obs_depth, mask_sil_r = prep
+    dev = tpl_pts.device
+    obs_sil_r = obs_depth > 0
+    intr_r = intr.scaled(score_res)
+    intr_q = intr.scaled(4)  # the early polish stages' resolution
+    # object windows: every predicted view and view score renders only a
+    # window around the hypothesis's projected object; the window score
+    # equals the full-frame score whenever the window covers the predicted
+    # silhouette (pixels outside enter through their full-frame totals)
+    win_r = window_dims(intr_r, win_hw, default=(256 // score_res, 256 // score_res))
+    win_q = (None if win_r is None else window_dims(
+        intr_q, (max(win_r[0] * score_res // 4, 16), max(win_r[1] * score_res // 4, 128))))
+    n_obs_total = torch.clamp(obs_sil_r.sum(), min=1)
+    n_mask_total = mask_sil_r.sum()
+    view_draws = draws.get("views", {})
+
+    def predicted_view(T, ri, n, win, key):
+        if win is None:
+            d_r = render_depth_mesh(mesh_v, mesh_f, T, ri, near=0.01, far=5.0)
+            view = backproject_depth(d_r, ri, depth_min=0.01, depth_max=5.0)
+        else:
+            o = window_origin(mesh_v, T, ri, win[0], win[1])
+            d_r = render_depth_mesh(mesh_v, mesh_f, T, ri, near=0.01, far=5.0,
+                                    origin=o.to(torch.float32), out_hw=win)
+            view = backproject_depth(d_r, ri, depth_min=0.01, depth_max=5.0, origin=o)
+        return random_sample(view, n, gen, view_draws.get(key))
+
+    def view_score(T):
+        if win_r is None:
+            dep = render_depth_mesh(mesh_v, mesh_f, T, intr_r, near=0.01, far=5.0)
+            obs_d, obs_s, msk = obs_depth, obs_sil_r, mask_sil_r
+            out_mask = out_obs = 0
+        else:
+            o = window_origin(mesh_v, T, intr_r, win_r[0], win_r[1])
+            dep = render_depth_mesh(mesh_v, mesh_f, T, intr_r, near=0.01, far=5.0,
+                                    origin=o.to(torch.float32), out_hw=win_r)
+            obs_d = window_gather(obs_depth, o[1], o[0], *win_r)
+            obs_s = obs_d > 0
+            msk = window_gather(mask_sil_r, o[1], o[0], *win_r)
+            out_mask = n_mask_total - msk.sum()
+            out_obs = n_obs_total - obs_s.sum()
+        sil = dep > 0
+        both = sil & obs_s
+        n_both = torch.clamp(both.sum(), min=1)
+        dz = torch.where(both, (dep - obs_d).abs(), torch.zeros_like(dep)).sum() / n_both
+        if have_mask:
+            # dense silhouette IoU: sees the tangential slides that depth
+            # residuals on smooth faces cannot
+            inter = (sil & msk).sum()
+            union = torch.clamp((sil | msk).sum() + out_mask, min=1)
+            return dz + 1.0 * (1.0 - inter / union)
+        # the splat=0 observed silhouette is sparse: only observed pixels the
+        # prediction misses are penalised
+        miss = ((obs_s & ~sil).sum() + out_obs) / n_obs_total
+        return dz + 0.25 * miss
+
+    def view_scores(Ts):
+        return torch.stack([view_score(T) for T in Ts])
+
+    vox = np.float32(voxel)
+    noise_bound = vox * np.float32(1.5)
+    corr_thresh = _f32(noise_bound * np.float32(1.5))
+    params = TeaserParams(noise_bound=float(noise_bound))
+    n_tpl = tpl_pts.shape[0]
+    # resolution gate of the relaxed regime (see the module docstring)
+    use_half = (not strict) and intr_q.width * intr_q.height >= 4096
+
+    # 5 hypotheses per template: 4 PCA sign alignments + FPFH/RANSAC/TEASER
+    midx, mok = match_features(tpl_fpfh, tpl_valid, dst_feats, dst_down.valid)
+    r = ransac_registration(tpl_pts, dst_down.points, midx, mok, corr_thresh,
+                            n_iters=RANSAC_ITERS, generator=gen, uniforms=draws.get("ransac"))
+    sol = teaser_solve(tpl_pts, dst_down.points[midx], r.corr_mask, params)
+    hyps = torch.cat([_pca_hypotheses(tpl_pts, tpl_valid, dst_down), sol.T[:, None]], dim=1)
+    n_hyp = hyps.shape[1]
+    flat_T0 = hyps.reshape(n_tpl * n_hyp, 4, 4)
+    flat_pts = tpl_pts.repeat_interleave(n_hyp, dim=0)
+    flat_val = tpl_valid.repeat_interleave(n_hyp, dim=0)
+
+    # coarse: every (template, hypothesis) chain in one batched ICP; the
+    # relaxed regime exits at 1e-4 (the batch runs to its slowest chain and
+    # the polish re-registers the winner anyway)
+    tol = 1e-4 if use_half else 1e-6
+    coarse = icp_point_to_point_batched(flat_pts, flat_val, dst_down, _f32(np.float32(3.0) * vox), flat_T0,
+                                        max_iterations=30, relative_fitness=tol, relative_rmse=tol)
+    T_c = coarse.T
+    s_c = alignment_score(PointCloud(transform_points(T_c, flat_pts), flat_val),
+                          PointCloud(flat_pts, flat_val), dst_down, voxel)
+
+    # polish the coarse-best n_polish hypotheses of each template (lowest
+    # index first on ties)
+    s_t = s_c.reshape(n_tpl, n_hyp)
+    bh = torch.sort(s_t, dim=1, stable=True).indices[:, :n_polish]
+    top = (torch.arange(n_tpl, device=dev)[:, None] * n_hyp + bh).reshape(-1)
+
+    # render-ICP ladder: early stages at quarter resolution (half-size clouds
+    # in the relaxed regime), the final sub-cm stage at the scoring view
+    early_n = 1024 if use_half else 2048
+    early_dst = dst_half if use_half else dst_dense
+    early_tol = 1e-4 if use_half else 1e-6
+    final_tol = 1e-5 if use_half else 1e-6
+    ladder_early = ((1.0, 60, intr_q, early_n, early_dst, early_tol, win_q),
+                    (0.3, 60, intr_q, early_n, early_dst, early_tol, win_q))
+    ladder_final = ((0.1, 40, intr_r, 2048, dst_dense, final_tol, win_r),)
+
+    def polish(Ts, chains, stages, s0):
+        for s, (dist, iters, ri, n_view, dst_s, tol_s, win_s) in enumerate(stages, s0):
+            views = [predicted_view(T, ri, n_view, win_s, (s, c)) for T, c in zip(Ts, chains)]
+            d = icp_point_to_point_batched(
+                torch.stack([v.points for v in views]), torch.stack([v.valid for v in views]),
+                dst_s, _f32(np.float32(dist) * vox), max_iterations=iters,
+                relative_fitness=tol_s, relative_rmse=tol_s)
+            Ts = matmul_small(d.T, Ts)
+        return Ts
+
+    chains = list(range(top.shape[0]))
+    T12 = polish(T_c[top], chains, ladder_early, 0)
+    if n_final is None or n_final >= len(chains):
+        T_f = polish(T12, chains, ladder_final, 2)
+        scores = view_scores(T_f)
+    else:
+        # the final stage only on the n_final best chains after a re-score;
+        # the rest keep their early-polish pose and score
+        s12 = view_scores(T12)
+        sel = torch.sort(s12, stable=True).indices[:n_final]
+        T3 = polish(T12[sel], sel.tolist(), ladder_final, 2)
+        T_f, scores = T12.clone(), s12.clone()
+        T_f[sel] = T3
+        scores[sel] = view_scores(T3)
+    if n_polish == 1:
+        return flat_T0[top], T_f, scores
+    sc_t = scores.reshape(n_tpl, n_polish)
+    pick = torch.argmin(sc_t, dim=1)
+    rows = torch.arange(n_tpl, device=dev)
+    H_pre = flat_T0[top].reshape(n_tpl, n_polish, 4, 4)[rows, pick]
+    return H_pre, T_f.reshape(n_tpl, n_polish, 4, 4)[rows, pick], sc_t[rows, pick]
+
+
+@torch.no_grad()
+def search_templates(dst_pts, dst_valid, tpl_pts, tpl_valid, tpl_fpfh, mesh_v, mesh_f,
+                     intr: Intrinsics, mask_sil, have_mask: bool, voxel, gen: torch.Generator,
+                     win_hw="auto", score_res: int = 2, n_polish: int = 1, n_final=None,
+                     dst_cap: int = SEARCH_CAP, strict: bool = False,
+                     draws: Optional[dict] = None):
+    """The single-device template search: observation prep, every
+    template's score, the winner. Returns ``(H_pre (4, 4), H_ref (4, 4),
+    best (), scores (T,), H_ref_all (T, 4, 4))``."""
+    draws = draws or {}
+    voxel = _f32(voxel)
+    prep = _prep_dst(dst_pts, dst_valid, intr, mask_sil, have_mask, voxel, gen, draws,
+                     score_res=score_res, dst_cap=dst_cap)
+    H_pre, H_ref, scores = _score_templates(
+        prep, tpl_pts, tpl_valid, tpl_fpfh, mesh_v, mesh_f, intr, have_mask, voxel, gen, draws,
+        win_hw=win_hw, score_res=score_res, n_polish=n_polish, n_final=n_final, strict=strict)
+    best = torch.argmin(scores)
+    return H_pre[best], H_ref[best], best, scores, H_ref
+
+
+@torch.no_grad()
+def score_pose_candidates(mesh_v, mesh_f, Ts, depth, mask, intr: Intrinsics, win_hw="auto"):
+    """Render-and-compare scores (K,) of candidate poses ``Ts`` (K, 4, 4)
+    against one observed frame's depth and detection mask, lower is better:
+    the search's depth + silhouette-IoU score at half resolution (depth
+    point-sampled at stride 2, mask 2x2 any-pooled)."""
+    intr_r = intr.scaled(2)
+    Hr, Wr = intr_r.height, intr_r.width
+    d_s = depth[: Hr * 2: 2, : Wr * 2: 2]
+    m_s = mask[: Hr * 2: 2, : Wr * 2: 2]
+    obs_d = torch.where(m_s & (d_s > 0), d_s, torch.zeros_like(d_s)).to(torch.float32)
+    mask_r = mask[: Hr * 2, : Wr * 2].reshape(Hr, 2, Wr, 2).any(3).any(1)
+    n_mask_total = mask_r.sum()
+    win = window_dims(intr_r, win_hw)
+
+    def score(T):
+        if win is None:
+            dep = render_depth_mesh(mesh_v, mesh_f, T, intr_r, near=0.01, far=5.0)
+            od, msk, out_mask = obs_d, mask_r, 0
+        else:
+            o = window_origin(mesh_v, T, intr_r, win[0], win[1])
+            dep = render_depth_mesh(mesh_v, mesh_f, T, intr_r, near=0.01, far=5.0,
+                                    origin=o.to(torch.float32), out_hw=win)
+            od = window_gather(obs_d, o[1], o[0], *win)
+            msk = window_gather(mask_r, o[1], o[0], *win)
+            out_mask = n_mask_total - msk.sum()
+        sil = dep > 0
+        both = sil & (od > 0)
+        n_both = torch.clamp(both.sum(), min=1)
+        dz = torch.where(both, (dep - od).abs(), torch.zeros_like(dep)).sum() / n_both
+        inter = (sil & msk).sum()
+        union = torch.clamp((sil | msk).sum() + out_mask, min=1)
+        return dz + 1.0 * (1.0 - inter / union)
+
+    return torch.stack([score(T) for T in Ts])

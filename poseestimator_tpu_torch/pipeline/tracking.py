@@ -28,7 +28,7 @@ from ..models.yolo.nms import nms
 from ..models.yolo.preprocess import letterbox
 from ..registration.icp import icp_point_to_point
 from ..render.raster import render_depth_mesh
-from .window import window_dims, window_origin
+from .window import window_dims, window_gather, window_origin
 
 SAMPLE_PTS = 4096  # points per cloud after sampling
 RENDER_DOWNSCALE = 2  # the predicted view renders at half resolution
@@ -41,14 +41,6 @@ class TrackResult:
     rmse: torch.Tensor
     cov: torch.Tensor  # (6, 6) camera-frame twist covariance
     n_iters: int  # ICP loop bodies run (K1 launches = n_iters + 1)
-
-
-def _window_gather(img: torch.Tensor, oy, ox, h: int, w: int) -> torch.Tensor:
-    """img[oy:oy+h, ox:ox+w] with a device-side origin (a gather, so the
-    origin never travels to the host)."""
-    rows = oy + torch.arange(h, device=img.device)
-    cols = ox + torch.arange(w, device=img.device)
-    return img[rows[:, None], cols[None, :]]
 
 
 def track_step(mesh_v: torch.Tensor, mesh_f: torch.Tensor, mask: torch.Tensor,
@@ -83,8 +75,8 @@ def track_step(mesh_v: torch.Tensor, mesh_f: torch.Tensor, mask: torch.Tensor,
 
     if win is not None:
         orig_f = orig_r.to(torch.int64) * r
-        dwin = _window_gather(depth, orig_f[1], orig_f[0], wh * r, ww * r)
-        mwin = _window_gather(mask, orig_f[1], orig_f[0], wh * r, ww * r)
+        dwin = window_gather(depth, orig_f[1], orig_f[0], wh * r, ww * r)
+        mwin = window_gather(mask, orig_f[1], orig_f[0], wh * r, ww * r)
         obs = backproject_depth(dwin, intr, mask=mwin, depth_min=1e-6, origin=orig_f)
     else:
         obs = backproject_depth(depth, intr, mask=mask, depth_min=1e-6)

@@ -69,3 +69,11 @@ def window_origin(verts: torch.Tensor, T_m2c: torch.Tensor, intr_r: Intrinsics,
     ox = torch.clamp(torch.round(cu - ww / 2), 0, intr_r.width - ww)
     oy = torch.clamp(torch.round(cv - wh / 2), 0, intr_r.height - wh)
     return torch.stack([ox, oy]).to(torch.int32)
+
+
+def window_gather(img: torch.Tensor, oy, ox, h: int, w: int) -> torch.Tensor:
+    """img[oy:oy+h, ox:ox+w] with a device-side origin (a gather, so the
+    origin never travels to the host)."""
+    rows = oy + torch.arange(h, device=img.device)
+    cols = ox + torch.arange(w, device=img.device)
+    return img[rows[:, None], cols[None, :]]

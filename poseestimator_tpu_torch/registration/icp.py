@@ -7,6 +7,13 @@ inlier gating at ``max_corr_dist`` and a weighted Horn alignment. The JAX
 on the device and read back once per iteration (one host synchronisation per
 iteration); ``n_iters`` counts loop bodies exactly as the JAX loop does, so
 the kernel runs ``n_iters + 1`` times.
+
+``icp_point_to_point_batched`` runs a batch of chains against one shared
+destination cloud, as the JAX package's ``vmap`` over the loop does: the
+loop runs while any chain continues, a chain that has stopped keeps its
+state, and ``n_iters`` is counted per chain. Every evaluation flattens the
+chains into one query set, so one K1 launch serves the whole batch; on the
+CPU each chain rounds exactly as an unbatched call does.
 """
 from __future__ import annotations
 
@@ -17,8 +24,8 @@ import torch
 
 from ..geom3d.cloud import PointCloud
 from ..geom3d.knn import nearest_neighbor
-from ..geom3d.se3 import axis_angle_to_R, make_T
-from .kabsch import kabsch
+from ..geom3d.se3 import axis_angle_to_R, make_T, transform_points
+from .kabsch import kabsch, kabsch_batched, matmul_small
 
 
 @dataclass
@@ -167,3 +174,75 @@ def icp_point_to_point(
         r_sq = ((pts - q) ** 2).sum(1)
         cov = _gn_covariance(J, r_sq, w, inl.sum(), 3)
     return ICPResult(T=T, fitness=fitness, inlier_rmse=rmse, n_iters=it, cov=cov)
+
+
+@dataclass
+class BatchedICPResult:
+    T: torch.Tensor  # (B, 4, 4) src -> dst per chain
+    fitness: torch.Tensor  # (B,)
+    inlier_rmse: torch.Tensor  # (B,)
+    n_iters: torch.Tensor  # (B,) int64 loop bodies per chain
+    n_evals: int  # batched evaluations: K1 launches on the card
+
+
+def icp_point_to_point_batched(
+    src_points: torch.Tensor,
+    src_valid: torch.Tensor,
+    dst: PointCloud,
+    max_corr_dist,
+    init_T: Optional[torch.Tensor] = None,
+    max_iterations: int = 30,
+    relative_fitness: float = 1e-6,
+    relative_rmse: float = 1e-6,
+) -> BatchedICPResult:
+    """Open3D-parity point-to-point ICP of B chains ``src_points`` (B, N, 3)
+    / ``src_valid`` (B, N) from ``init_T`` (B, 4, 4) onto one ``dst``."""
+    B = src_points.shape[0]
+    dev = src_points.device
+    f32 = torch.float32
+    if init_T is None:
+        init_T = torch.eye(4, dtype=f32, device=dev).expand(B, 4, 4)
+    max_corr_dist = torch.as_tensor(max_corr_dist, dtype=f32, device=dev)
+    n_src = torch.clamp(src_valid.sum(-1), min=1)
+
+    def evaluate(T):
+        moved = transform_points(T, src_points)
+        d, idx, found = nearest_neighbor(moved.reshape(-1, 3), src_valid.reshape(-1),
+                                         dst.points, dst.valid)
+        d, idx, found = d.view(src_valid.shape), idx.view(src_valid.shape), found.view(src_valid.shape)
+        inl = src_valid & found & (d <= max_corr_dist)
+        n_inl = inl.sum(-1)
+        fitness = n_inl.to(f32) / n_src.to(f32)
+        rmse = torch.sqrt(torch.where(inl, d * d, torch.zeros_like(d)).sum(-1)
+                          / torch.clamp(n_inl, min=1))
+        return moved, idx, inl, fitness, rmse
+
+    T = init_T
+    pts, idx, inl, fitness, rmse = evaluate(T)
+    n_evals = 1
+    prev_fitness, prev_rmse = fitness + 1.0, rmse + 1.0
+    it = torch.zeros(B, dtype=torch.int64, device=dev)
+    eye = torch.eye(4, dtype=f32, device=dev)
+    while True:
+        a = (it < max_iterations) & (((prev_fitness - fitness).abs() > relative_fitness)
+                                     | ((prev_rmse - rmse).abs() > relative_rmse))
+        if not bool(a.any()):
+            break
+        R, t = kabsch_batched(pts, dst.points[idx], inl.to(f32))
+        D = eye.expand(B, 4, 4).clone()
+        D[:, :3, :3] = R
+        D[:, :3, 3] = t
+        T_new = matmul_small(D, T)
+        new = evaluate(T_new)
+        n_evals += 1
+        a1, a2, a3 = a[:, None], a[:, None, None], a
+        T = torch.where(a2, T_new, T)
+        pts = torch.where(a2, new[0], pts)
+        idx = torch.where(a1, new[1], idx)
+        inl = torch.where(a1, new[2], inl)
+        prev_fitness = torch.where(a3, fitness, prev_fitness)
+        prev_rmse = torch.where(a3, rmse, prev_rmse)
+        fitness = torch.where(a3, new[3], fitness)
+        rmse = torch.where(a3, new[4], rmse)
+        it = it + a.to(torch.int64)
+    return BatchedICPResult(T=T, fitness=fitness, inlier_rmse=rmse, n_iters=it, n_evals=n_evals)

@@ -1,6 +1,7 @@
 """Triangle-mesh z-buffer depth rasterization (counterpart of
 ``poseestimator_tpu/render/raster.py``): kernel K2 (``csrc/raster.cu``), its
-plain PyTorch version, the shared per-face setup and ``render_depth_mesh``.
+plain PyTorch version, the shared per-face setup and ``render_depth_mesh``;
+and the depth-only shading of the template images.
 
 Per-face barycentric edge functions are evaluated at integer pixel
 coordinates and 1/z — affine in screen space over a planar face — is
@@ -131,3 +132,33 @@ def render_depth_mesh(vertices, faces, T_m2c, intr: Intrinsics, near: float = 0.
     H, W = out_hw if out_hw is not None else (intr.height, intr.width)
     coef, bbox = face_coeffs(vertices, faces, T_m2c, intr, near=near, origin=origin)
     return izmax_to_depth(raster(coef, bbox, H, W), near, far)
+
+
+def depth_lambert(depth: torch.Tensor, intr: Intrinsics) -> torch.Tensor:
+    """Headlight Lambertian term from a depth image alone: normals from the
+    gradients of the back-projected positions; pixels where the gradient
+    spans a depth jump (a silhouette) take a flat 0.6."""
+    H, W = depth.shape
+    u = torch.arange(W, dtype=torch.float32, device=depth.device).expand(H, W)
+    v = torch.arange(H, dtype=torch.float32, device=depth.device)[:, None].expand(H, W)
+    P = torch.stack([(u - intr.cx) * depth / intr.fx, (v - intr.cy) * depth / intr.fy, depth],
+                    dim=-1)
+    du = torch.gradient(P, dim=1)[0]
+    dv = torch.gradient(P, dim=0)[0]
+    n = torch.linalg.cross(du, dv, dim=-1)
+    n = n / torch.clamp(torch.linalg.vector_norm(n, dim=-1, keepdim=True), min=1e-12)
+    n = torch.where(n[..., 2:3] > 0, -n, n)  # toward the camera
+    lambert = torch.clamp(-n[..., 2], 0.15, 1.0)
+    edge = ((torch.gradient(depth, dim=0)[0].abs() > 0.05)
+            | (torch.gradient(depth, dim=1)[0].abs() > 0.05))
+    return torch.where(edge, torch.full_like(lambert, 0.6), lambert)
+
+
+def shade_depth_image(depth: torch.Tensor, intr: Intrinsics,
+                      base_color=(0.0, 0.0, 1.0)) -> torch.Tensor:
+    """(H, W, 3) headlight-shaded colour in [0, 1] of a depth image, white
+    where the depth is 0."""
+    lambert = depth_lambert(depth, intr)
+    base = torch.as_tensor(base_color, dtype=torch.float32, device=depth.device)
+    return torch.where((depth > 0)[..., None], lambert[..., None] * base,
+                       torch.ones_like(lambert)[..., None])
