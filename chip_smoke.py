@@ -12,12 +12,24 @@ port's two paths and checks their accuracy against ground truth:
   box CAD written as a PLY, its 5-view template database rendered on the
   card, and the search run on two observations (the bench scene, and a pose
   near a template view), with the kernels held against their plain versions
-  at the shapes the search gives them.
+  at the shapes the search gives them;
+- the ``Tracker`` a user drives with ``step()``, on the L-shape scene of the
+  JAX package's tracking evaluation (640x480, the exact-raster mesh camera,
+  12 static frames then 30 turning 0.008 rad a frame): (a) dense and (b)
+  sparse tracking with a perfect-mask detector, each to its ADD-S budget
+  with every motion frame tracked (the L-shape is two-fold symmetric, so
+  ADD-S is taken against the nearer of the true pose's two twins; the
+  plain figure is printed beside it); (c) the fused detect + track frame with
+  the full-width YOLO11n-seg on seeded random weights, through a scripted
+  run of misses (TRACK -> LOST -> INIT with a second search -> TRACK) and
+  the multi-frame init rollout; the kernels held against their plain
+  versions at the shapes the tracker gives them.
 
 Any failed phase exits nonzero.
 
-Output: progress lines, then the card's name and power limit, a JSON
-summary, a JSON line of the kernels, and as the last line
+Output: progress lines (one JSON line per tracker part), then the card's
+name and power limit, a JSON summary, a JSON line of the kernels, and as
+the last line
 ``{"ok": true, "device": {...}}``.
 
 Kernel times: ``device_ms`` is the device time of one call (50 calls
@@ -42,7 +54,11 @@ import numpy as np
 
 FRAMES = 30
 ADDS_BUDGET_CM = 1.5  # dense tracking budget of the JAX package's bench
+SPARSE_BUDGET_CM = 2.5  # its sparse (300-point) budget
 SEARCH_REPS = 5  # timed warm searches per observation
+# the tracker scene: static warm-up frames, then frames turning about z
+TRACK_WARM, TRACK_MOTION, TRACK_ROT = 12, 30, 0.008
+ROLLOUT = 2  # init rollout frames of the tracker's part (c)
 # non-tensor float32 peak, HBM rate, and single instructions a second
 # (132 SMs x 128 lanes x 1.98 GHz): the rate of an FMA-free kernel
 H100 = {"f32_ops": 67e12, "bytes": 3.35e12, "lane_instr": 132 * 128 * 1.98e9}
@@ -251,7 +267,7 @@ def check_raster(torch, rs, window_origin, mesh_v, mesh_f, T0, intr_r, win, dev)
         worst = max(worst, err)
         log(f"K2 {name}: {coef.shape[0]} faces, coverage and depth identical "
             f"({int((izk > 0).sum())} px covered)")
-        if name == main or name.startswith(("icosphere", "bench box template")):
+        if name == main or name.startswith(("icosphere", "bench box template", "L-shape")):
             timings[name] = {
                 "faces": coef.shape[0], "hw": [H, W], "covered_px": int((izk > 0).sum()),
                 "device_ms": device_ms(torch, lambda: rs.raster(coef, bbox, H, W)),
@@ -264,8 +280,9 @@ def check_raster(torch, rs, window_origin, mesh_v, mesh_f, T0, intr_r, win, dev)
     return {"max_abs_err": worst, "main": main, "shapes": timings}
 
 
-def check_search_shapes(torch, fnn, rs, nn_inputs: dict, raster_inputs: dict) -> dict:
-    """K1 and K2 against their plain versions on the inputs a search gave
+def check_search_shapes(torch, fnn, rs, nn_inputs: dict, raster_inputs: dict,
+                        where: str = "the search's") -> dict:
+    """K1 and K2 against their plain versions on the inputs a path gave
     them (the first call of each shape), with device times and bounds."""
     out = {"K1": {}, "K2": {}}
     for (n, m), (q, qv, d, dv) in sorted(nn_inputs.items()):
@@ -273,7 +290,7 @@ def check_search_shapes(torch, fnn, rs, nn_inputs: dict, raster_inputs: dict) ->
         torch.cuda.synchronize()
         pd, pi, pf = fnn.fused_nn_plain(q, qv, d, dv)
         if not (torch.equal(ki, pi) and torch.equal(kf, pf) and torch.equal(kd, pd)):
-            fail(f"K1 at the search's {n}x{m}: differs from the plain version")
+            fail(f"K1 at {where} {n}x{m}: differs from the plain version")
         b = nn_bound(n, m)
         out["K1"][f"{n}x{m}"] = {
             "device_ms": device_ms(torch, lambda: fnn.fused_nn(q, qv, d, dv)),
@@ -284,15 +301,15 @@ def check_search_shapes(torch, fnn, rs, nn_inputs: dict, raster_inputs: dict) ->
         izk = rs.raster(coef, bbox, H, W)
         torch.cuda.synchronize()
         if not torch.equal(izk, rs.raster_plain(coef, H, W, chunk=64)):
-            fail(f"K2 at the search's {H}x{W}: differs from the plain version")
+            fail(f"K2 at {where} {H}x{W}: differs from the plain version")
         b = raster_bound(bbox, H, W)
-        out["K2"][f"{H}x{W} window, {F} faces"] = {
+        out["K2"][f"{H}x{W}, {F} faces"] = {
             "device_ms": device_ms(torch, lambda: rs.raster(coef, bbox, H, W)),
             "plain_ms": call_ms(torch, lambda: rs.raster_plain(coef, H, W, chunk=64), reps=10),
             "bound_ms": b[0], "bound_by": b[1]}
     for k in ("K1", "K2"):
         for shape, t in out[k].items():
-            log(f"{k} at the search's {shape}: identical to the plain version; device "
+            log(f"{k} at {where} {shape}: identical to the plain version; device "
                 f"{t['device_ms']:.5f} ms, plain {t['plain_ms']:.4f} ms, bound "
                 f"{t['bound_ms']:.3g} ms ({t['bound_by']})"
                 + (f", library {t['library_ms']:.5f} ms" if "library_ms" in t else ""))
@@ -431,6 +448,259 @@ def search_phase(torch, dev, kc, fnn, rs, intr, tmp: str, profile_path=None) -> 
             "nn_inputs": nn_inputs, "raster_inputs": raster_inputs}
 
 
+def tracker_scene(look_at, gl_to_cv, diag: float) -> list:
+    """The poses of the JAX package's tracking evaluation: the camera
+    2 diag away along (1, 1, 1) (up +Y), TRACK_WARM static frames at 0.1 rad
+    about z, then TRACK_MOTION frames turning TRACK_ROT a frame."""
+    d = np.ones(3) / np.sqrt(3.0)
+    base = gl_to_cv @ look_at(d * diag * 2.0, np.zeros(3), [0.0, 1.0, 0.0]).numpy()
+    angles = [0.1] * TRACK_WARM + [0.1 + TRACK_ROT * (i + 1) for i in range(TRACK_MOTION)]
+    poses = []
+    for a in angles:
+        P = np.eye(4)
+        P[:2, :2] = [[np.cos(a), -np.sin(a)], [np.sin(a), np.cos(a)]]
+        poses.append((P @ base).astype(np.float32))
+    return poses
+
+
+def tracker_phase(torch, dev, kc, fnn, rs, tmp: str, width: int = 640, height: int = 480,
+                  imgsz: int = 640) -> dict:
+    """The ``Tracker`` on the L-shape scene, in three parts (see the module
+    docstring). Per part: ADD-S over the tracked frames against the
+    camera's true pose (mean and p95, cm), frames tracked, time to first
+    pose (the init step's global registration), the median ``step()`` of
+    tracked frames, and K1 / K2 launches per tracked frame and per init
+    (counts set to 0 just before each step and read just after). Also
+    returns the kernels' inputs at every shape of parts (a) and (b) (among
+    them K1 300 x 300 and K2 over the camera's full frame). ``width`` x
+    ``height`` is the camera, ``imgsz`` the detector's letterbox."""
+    from poseestimator_tpu_torch.camera import SyntheticCamera
+    from poseestimator_tpu_torch.geom3d import knn as knn_mod
+    from poseestimator_tpu_torch.geom3d.camera import Intrinsics
+    from poseestimator_tpu_torch.geom3d.se3 import look_at
+    from poseestimator_tpu_torch.models.yolo.model import YOLO11Seg, init_random_
+    from poseestimator_tpu_torch.models.yolo.nms import Detections
+    from poseestimator_tpu_torch.pipeline import Detector, PoseEstimator
+    from poseestimator_tpu_torch.pipeline import tracking as trk
+    from poseestimator_tpu_torch.utils.plyio import write_ply
+
+    verts, faces = kc.lshape_mesh()
+    cad = os.path.join(tmp, "lshape.ply")
+    write_ply(cad, verts, faces=faces)
+    intr = Intrinsics.from_fov(60.0, width, height)
+    diag = float(np.linalg.norm(verts.max(0) - verts.min(0)))
+    poses = tracker_scene(look_at, kc.GL_TO_CV, diag)
+    # the L-shape is two-fold symmetric: ADD-S is taken against the nearer
+    # twin of the true pose, once the two are shown to render alike here
+    S = kc.lshape_symmetry()
+    syms = [torch.eye(4, device=dev), torch.from_numpy(S).to(dev)]
+    v_t, f_t = torch.from_numpy(verts).to(dev), torch.from_numpy(faces.astype(np.int64)).to(dev)
+    for T in (poses[0], poses[-1]):
+        d0, d1 = (rs.render_depth_mesh(v_t, f_t, torch.from_numpy(P).to(dev), intr, near=0.01,
+                                       far=10.0) for P in (T, (T @ S).astype(np.float32)))
+        if not torch.equal(d0 > 0, d1 > 0) or float((d0 - d1).abs().max()) > 1e-3:
+            fail("tracker: the L-shape's twin pose does not render as the pose does")
+
+    class PerfectMaskDetector:
+        """The camera's true visible silhouette as the one detection."""
+
+        def __init__(self, camera):
+            self.camera = camera
+
+        def __call__(self, img, conf=0.7, iou=0.7):
+            det = Detections(boxes=torch.zeros(1, 4, device=dev),
+                             scores=torch.ones(1, device=dev),
+                             classes=torch.zeros(1, dtype=torch.int64, device=dev),
+                             coeffs=torch.zeros(1, 32, device=dev),
+                             valid=torch.ones(1, dtype=torch.bool, device=dev))
+            mask = torch.from_numpy(self.camera.object_mask).to(dev)
+            return det, mask[None], torch.zeros(1, 4, device=dev)
+
+    # (c) only: YOLO11n-seg on seeded random weights. Its masks are noise on
+    # this synthetic frame, so, as the JAX package's bench does, the true
+    # silhouette is OR-ed into the top mask and the confidence gate is 0:
+    # every detection op stays live while the tracker sees an
+    # object-dominated mask (the depth is 0 off the object, so extra mask
+    # pixels give no points). On the scripted miss frames the gate is set
+    # above any score and nothing is OR-ed in: a real miss of the detector.
+    class SilhouetteDetector(Detector):
+        def __init__(self, weights, camera, miss_frames, **kw):
+            super().__init__(weights, **kw)
+            self.camera, self.miss_frames = camera, miss_frames
+
+        def scripted_miss(self) -> bool:
+            return self.camera.frames_served in self.miss_frames
+
+        def silhouette(self):
+            return torch.from_numpy(self.camera.object_mask).to(dev)
+
+        def __call__(self, img, conf=0.25, iou=0.7, with_masks=True):
+            if self.scripted_miss():
+                return super().__call__(img, 2.0, iou, with_masks)
+            det, masks, boxes = super().__call__(img, conf, iou, with_masks)
+            masks[0] |= self.silhouette()
+            return det, masks, boxes
+
+    class SmokeTracker(trk.Tracker):
+        """Routes the fused frame's mask through the SilhouetteDetector's
+        rule, and records each init rollout."""
+
+        def _build_fused_step(self, win_hw):
+            frame = super()._build_fused_step(win_hw)
+            det = self.detector
+
+            def fused(color, depth, T, conf, icp_dist, generator):
+                self.fused_calls += 1
+                if det.scripted_miss():
+                    return frame(color, depth, T, conf=2.0, icp_dist=icp_dist,
+                                 generator=generator)
+                return frame(color, depth, T, conf=conf, icp_dist=icp_dist,
+                             mask_union=det.silhouette(), generator=generator)
+            return fused
+
+        def _rollout_init(self, H, candidates):
+            n0 = steps["n"]
+            out = super()._rollout_init(H, candidates)
+            self.rollouts.append({"basins": len(self._distinct_basins(candidates)),
+                                  "track_steps": steps["n"] - n0, "margin": out[1]})
+            return out
+
+    steps = {"n": 0}
+    orig_step = trk.track_step
+
+    def counted_step(*args, **kw):
+        steps["n"] += 1
+        return orig_step(*args, **kw)
+
+    model_pts = None
+    nn_inputs, raster_inputs = {}, {}
+    orig_nn, orig_raster = knn_mod.fused_nn, rs.raster
+
+    def run(name, target_pts, fused=False):
+        nonlocal model_pts
+        est = PoseEstimator(cad, os.path.join(tmp, "lviews"), intr, target_points=target_pts or 100,
+                            seed=0, device=dev)
+        if model_pts is None:  # the ADD-S model points of the evaluation
+            model_pts = torch.from_numpy(
+                est.mesh.sample_points_uniformly(512, np.random.default_rng(0))[0]).to(dev)
+        cam = SyntheticCamera(model_pts.cpu().numpy(), np.zeros((512, 3), np.float32), poses,
+                              intr, mesh=(est._mesh_v, est._mesh_f), device=dev)
+        cfg = dict(target_pts=target_pts, icp_dist=0.01, warmup_frames=3, max_init_frames=20,
+                   device=dev)
+        if fused:
+            weights = init_random_(YOLO11Seg(nc=5, scale="n"),
+                                   torch.Generator().manual_seed(0)).state_dict()
+            # frames 8..13: max_misses + 1 = 6 misses in a row while tracking
+            det = SilhouetteDetector(weights, cam, set(range(8, 14)), nc=5, imgsz=imgsz,
+                                     device=dev)
+            tracker = SmokeTracker(cam, est, det, conf=0.0, init_rollout=ROLLOUT, max_misses=5,
+                                   **cfg)
+            tracker.fused_calls, tracker.rollouts = 0, []
+        else:
+            tracker = trk.Tracker(cam, est, PerfectMaskDetector(cam), **cfg)
+        rows = []
+        while True:
+            fnn.fused_nn_stats.launches = 0
+            rs.raster_stats.launches = 0
+            t = time.perf_counter()
+            res = tracker.step()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) * 1e3
+            if res is None:
+                break
+            row = {"state": res.state, "ms": ms, "frame": cam.frames_served,
+                   "k1": fnn.fused_nn_stats.launches, "k2": rs.raster_stats.launches,
+                   "fused": "frame" in res.timings}
+            if res.state == "init":
+                row["ttfp_ms"] = res.timings["global_registration"] * 1e3
+                row["init_margin"] = res.init_margin
+            if res.state == "track" and res.detected:
+                T = torch.from_numpy(np.asarray(res.T_m2c, np.float32)).to(dev)
+                G = torch.from_numpy(cam.current_gt).to(dev)
+                row["adds_cm"], row["twin"] = adds_sym_cm(torch, model_pts, T, G, syms)
+                row["adds_plain_cm"] = adds_cm(torch, model_pts, T, G)
+            rows.append(row)
+        tracked = [r for r in rows if "adds_cm" in r]
+        inits = [r for r in rows if r["state"] == "init"]
+        if not tracked or not inits:
+            fail(f"tracker {name}: {len(inits)} inits, {len(tracked)} tracked frames")
+        adds = [r["adds_cm"] for r in tracked]
+        plain = [r["adds_plain_cm"] for r in tracked]
+        out = {"part": name, "target_pts": target_pts,
+               "adds_mean_cm": float(np.mean(adds)), "adds_p95_cm": float(np.percentile(adds, 95)),
+               "adds_plain_mean_cm": float(np.mean(plain)),
+               "frames_on_the_twin": sum(r["twin"] for r in tracked),
+               "frames_tracked": len(tracked),
+               "motion_frames_tracked": sum(r["frame"] > TRACK_WARM for r in tracked),
+               "time_to_first_pose_ms": inits[0]["ttfp_ms"],
+               "init_step_ms": [r["ms"] for r in inits],
+               "step_ms_median_tracked": float(np.median([r["ms"] for r in tracked])),
+               "k1_per_tracked_frame": float(np.mean([r["k1"] for r in tracked])),
+               "k2_per_tracked_frame": float(np.mean([r["k2"] for r in tracked])),
+               "k1_per_init": [r["k1"] for r in inits], "k2_per_init": [r["k2"] for r in inits],
+               "k1_launches": sum(r["k1"] for r in rows), "k2_launches": sum(r["k2"] for r in rows),
+               "states": "".join(r["state"][0] for r in rows)}
+        if out["k1_launches"] == 0 or out["k2_launches"] == 0:
+            fail(f"tracker {name}: a kernel was never launched ({out['k1_launches']} K1, "
+                 f"{out['k2_launches']} K2)")
+        if fused:
+            out["fused_calls"] = tracker.fused_calls
+            out["fused_on_tracked_frames"] = all(r["fused"] for r in tracked)
+            out["rollouts"] = tracker.rollouts
+            out["init_margins"] = [r["init_margin"] for r in inits]
+        log(json.dumps({"tracker": {k: v for k, v in out.items() if k != "init_step_ms"}}))
+        return out
+
+    parts = {}
+    try:
+        # the kernels' inputs at the tracker's new shapes, from their first call
+        knn_mod.fused_nn = _first_call_recorder(
+            torch, nn_inputs, orig_nn, lambda q, qv, d, dv: (q.shape[0], d.shape[0]))
+        rs.raster = _first_call_recorder(
+            torch, raster_inputs, orig_raster, lambda c, b, H, W: (H, W, c.shape[0]))
+        parts["a"] = run("a: dense", 0)
+        parts["b"] = run("b: sparse, 300 points", 300)
+        knn_mod.fused_nn, rs.raster = orig_nn, orig_raster
+        trk.track_step = counted_step
+        parts["c"] = run("c: fused frame, misses and re-init", 0, fused=True)
+    finally:
+        knn_mod.fused_nn, rs.raster, trk.track_step = orig_nn, orig_raster, orig_step
+
+    for key, budget in (("a", ADDS_BUDGET_CM), ("b", SPARSE_BUDGET_CM)):
+        p = parts[key]
+        if p["motion_frames_tracked"] != TRACK_MOTION:
+            fail(f"tracker {p['part']}: {p['motion_frames_tracked']} of {TRACK_MOTION} motion "
+                 f"frames tracked")
+        if not p["adds_mean_cm"] <= budget:
+            fail(f"tracker {p['part']}: mean ADD-S {p['adds_mean_cm']:.4f} cm > {budget} cm")
+    c = parts["c"]
+    # TRACK -> LOST -> INIT -> TRACK: a lost run, then a second search, then tracking
+    seq = c["states"]
+    i_lost = seq.find("t" + "l" * 6)
+    if i_lost < 0 or "i" not in seq[i_lost:] or "t" not in seq[seq.index("i", i_lost):]:
+        fail(f"tracker {c['part']}: no TRACK -> LOST -> INIT -> TRACK cycle in {seq}")
+    if seq.count("i") < 2:
+        fail(f"tracker {c['part']}: {seq.count('i')} searches, expected a second one")
+    if not c["fused_on_tracked_frames"] or c["fused_calls"] == 0:
+        fail(f"tracker {c['part']}: tracked frames did not take the fused frame")
+    # each rollout tracks every distinct basin through every rollout frame;
+    # a search whose candidates are one basin leaves nothing to roll out
+    if len(c["rollouts"]) != seq.count("i"):
+        fail(f"tracker {c['part']}: {len(c['rollouts'])} rollouts for {seq.count('i')} inits")
+    for r in c["rollouts"]:
+        if r["basins"] < 2:
+            log(f"tracker {c['part']}: a search gave one basin; its rollout had nothing to run")
+        elif r["track_steps"] != ROLLOUT * r["basins"]:
+            fail(f"tracker {c['part']}: a rollout of {r['basins']} basins ran "
+                 f"{r['track_steps']} track steps, not {ROLLOUT * r['basins']}")
+    if not any(r["basins"] >= 2 for r in c["rollouts"]):
+        log(f"tracker {c['part']}: no search gave two basins: the rollout never ran")
+    if (300, 300) not in nn_inputs or not any(k[:2] == (height, width) for k in raster_inputs):
+        fail(f"tracker: no K1 300x300 ({sorted(nn_inputs)}) or full-frame K2 "
+             f"({sorted(raster_inputs)}) input recorded")
+    return {"parts": parts, "nn_inputs": nn_inputs, "raster_inputs": raster_inputs}
+
+
 def adds_cm(torch, pts, T_est, T_true) -> float:
     """ADD-S: mean distance from each estimated model point to the nearest
     true one (exact, no matmul distance form)."""
@@ -438,6 +708,17 @@ def adds_cm(torch, pts, T_est, T_true) -> float:
     b = pts @ T_true[:3, :3].T + T_true[:3, 3]
     d = torch.cdist(a, b, compute_mode="donot_use_mm_for_euclid_dist").min(1).values
     return float(d.mean()) * 100.0
+
+
+def adds_sym_cm(torch, pts, T_est, T_true, symmetries) -> tuple[float, int]:
+    """ADD-S against the nearest symmetric twin of the true pose,
+    ``min over S of ADD-S(T_est, T_true @ S)`` (the BOP treatment of
+    discrete symmetries), and the index of that S. On a finite point sample
+    plain ADD-S does not vanish on a twin: each estimated point meets only
+    other samples of the same surface."""
+    errs = [adds_cm(torch, pts, T_est, T_true @ S) for S in symmetries]
+    k = int(np.argmin(errs))
+    return errs[k], k
 
 
 def profile_calls(torch, fn, n: int, path: str, unit: str) -> dict:
@@ -610,8 +891,12 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         search = search_phase(torch, dev, kc, fnn, rs, intr, tmp, profile_path=(
             "{0}_search{1}".format(*os.path.splitext(args.profile)) if args.profile else None))
+        # 7. the tracker, then the kernels at its new shapes
+        tracker = tracker_phase(torch, dev, kc, fnn, rs, tmp)
     search_k = check_search_shapes(torch, fnn, rs, search.pop("nn_inputs"),
                                    search.pop("raster_inputs"))
+    tracker_k = check_search_shapes(torch, fnn, rs, tracker.pop("nn_inputs"),
+                                    tracker.pop("raster_inputs"), where="the tracker's")
 
     if args.profile:
         # the first 5 frames of the sequence again from the start pose
@@ -633,7 +918,7 @@ def main(argv=None) -> int:
         "icp_n_iters_mean": float(np.mean(n_iters)), "icp_n_iters": n_iters,
         "adds_mean_cm": adds_mean, "adds_max_cm": float(max(adds)),
         "k1_launches": k1_launches, "k2_launches": k2_launches,
-        "search": search,
+        "search": search, "tracker": tracker["parts"],
     }
     log(f"track step alone: {track_ms:.3f} ms; one host read: {read_us:.1f} us")
     k2_main = k2["shapes"][k2["main"]]
@@ -647,8 +932,12 @@ def main(argv=None) -> int:
          "issue_bound_ms": k1["issue_ms"], "library_ms": k1["library_ms"],
          "shape": "4096x4096",
          "other_shapes": {"16384x16384": k1["16384x16384"],
-                          **{f"search {k}": v for k, v in search_k["K1"].items()}},
+                          **{f"search {k}": v for k, v in search_k["K1"].items()},
+                          **{f"tracker {k}": v for k, v in tracker_k["K1"].items()}},
          "search_launches": {n: r["k1_launches"] for n, r in search["scenes"].items()},
+         "tracker_launches": {p["part"]: {k: p[k] for k in (
+             "k1_launches", "k1_per_tracked_frame", "k1_per_init")}
+             for p in tracker["parts"].values()},
          "cost_model": k1["cost_model"]},
         {"name": "K2 raster", "route": "cuda",
          "source": "poseestimator_tpu_torch/csrc/raster.cu",
@@ -661,8 +950,12 @@ def main(argv=None) -> int:
                                  "plain_ms": v["plain_ms"], "bound_ms": v["bound"][0],
                                  "bound_by": v["bound"][1]}
                              for k, v in k2["shapes"].items() if k != k2["main"]},
-                          **{f"search {k}": v for k, v in search_k["K2"].items()}},
-         "search_launches": {n: r["k2_launches"] for n, r in search["scenes"].items()}},
+                          **{f"search {k}": v for k, v in search_k["K2"].items()},
+                          **{f"tracker {k}": v for k, v in tracker_k["K2"].items()}},
+         "search_launches": {n: r["k2_launches"] for n, r in search["scenes"].items()},
+         "tracker_launches": {p["part"]: {k: p[k] for k in (
+             "k2_launches", "k2_per_tracked_frame", "k2_per_init")}
+             for p in tracker["parts"].values()}},
     ]}
     summary["kernels"] = kernels_line["kernels"]
     if args.profile:
@@ -671,8 +964,8 @@ def main(argv=None) -> int:
         with open(args.out, "w") as f:
             json.dump(summary, f, indent=1)
     log(f"card: {card}")
-    log(json.dumps({k: v for k, v in summary.items() if k not in ("frame_ms", "icp_n_iters",
-                                                                  "kernels", "search")}))
+    log(json.dumps({k: v for k, v in summary.items() if k not in (
+        "frame_ms", "icp_n_iters", "kernels", "search", "tracker")}))
     log(json.dumps({"search": search}))
     log(json.dumps(kernels_line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

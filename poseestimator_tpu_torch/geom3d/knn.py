@@ -5,7 +5,8 @@
 package's 8M-entry size gate is dropped: no plain path runs on the card) and
 through K1's plain version on the CPU. ``knn`` (k > 1: the outlier filter,
 normals and FPFH neighbourhoods) stays a dense distance matrix and a top-k,
-as in the JAX package.
+as in the JAX package; above 64M matrix entries it runs in blocks of
+query rows, which bounds its memory and changes no result.
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ import torch
 from .fused_nn import fused_nn
 
 BIG = 3.0e38
+BLOCK_ENTRIES = 64 * 1024 * 1024  # distance-matrix entries per knn block
 
 
 def pairwise_sqdist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -34,12 +36,26 @@ def masked_sqdist(a, a_valid, b, b_valid) -> torch.Tensor:
 
 def knn(query, query_valid, data, data_valid, k: int, exclude_self: bool = False):
     """k nearest data points per query. Returns ``(dists, idx, nb_valid)``,
-    each (N, k); distances of the selected pairs are recomputed exactly."""
+    each (N, k); distances of the selected pairs are recomputed exactly.
+    ``exclude_self``: query i is data point i and is not its own neighbour."""
+    rows = max(BLOCK_ENTRIES // max(data.shape[0], 1), 1)
+    if query.shape[0] <= rows:
+        return _knn_block(query, query_valid, data, data_valid, k, 0 if exclude_self else None)
+    parts = [_knn_block(query[s:s + rows], query_valid[s:s + rows], data, data_valid, k,
+                        s if exclude_self else None)
+             for s in range(0, query.shape[0], rows)]
+    return tuple(torch.cat(p) for p in zip(*parts))
+
+
+def _knn_block(query, query_valid, data, data_valid, k: int, self_offset):
+    """``knn`` of a block of query rows; ``self_offset``: the data index of
+    the first query row when it is its own point, else None."""
     d2 = masked_sqdist(query, query_valid, data, data_valid)
-    if exclude_self:
-        n = d2.shape[0]
-        eye = torch.eye(n, d2.shape[1], dtype=torch.bool, device=d2.device)
-        d2 = d2.masked_fill(eye, BIG)
+    if self_offset is not None:
+        dev = d2.device
+        own = (torch.arange(d2.shape[0], device=dev)[:, None] + self_offset
+               == torch.arange(d2.shape[1], device=dev)[None, :])
+        d2 = d2.masked_fill(own, BIG)
     neg, idx = torch.topk(-d2, k, dim=1)
     nb_valid = -neg < BIG * 0.5
     diff = query[:, None, :] - data[idx]

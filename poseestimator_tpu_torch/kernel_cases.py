@@ -18,7 +18,7 @@ import numpy as np
 
 from .geom3d.camera import Intrinsics
 from .geom3d.se3 import look_at
-from .render.mesh import make_icosphere
+from .render.mesh import make_icosphere, pad_faces
 
 # the bench box CAD: half extents (m) and its 12 faces
 BOX_HALF = (0.06, 0.04, 0.025)
@@ -33,6 +33,37 @@ def box_vertices(half=BOX_HALF) -> np.ndarray:
     bx, by, bz = half
     return np.array([[sx * bx, sy * by, sz * bz] for sx in (-1, 1) for sy in (-1, 1)
                      for sz in (-1, 1)], np.float32)
+
+
+def box_mesh(size, center=(0.0, 0.0, 0.0)) -> tuple[np.ndarray, np.ndarray]:
+    """A box of full extents ``size`` at ``center``: 8 vertices, 12 faces,
+    triangulated as the JAX package's test fixtures triangulate it."""
+    v = box_vertices(tuple(0.5 * np.asarray(size, np.float64))) + np.asarray(center, np.float32)
+    quads = ((0, 1, 3, 2), (6, 7, 5, 4), (0, 4, 5, 1), (2, 3, 7, 6), (0, 2, 6, 4), (1, 5, 7, 3))
+    f = np.array([t for a, b, c, d in quads for t in ((a, b, c), (a, c, d))], np.int32)
+    return v.astype(np.float32), f
+
+
+def lshape_mesh(scale: float = 1.0) -> tuple[np.ndarray, np.ndarray]:
+    """The evaluation L-shape of the JAX package's tests (two fused boxes,
+    0.6 x 0.2 x 0.2 at the origin and 0.2 x 0.4 x 0.2 at (-0.2, 0.3, 0),
+    times ``scale``): 16 vertices, 24 faces."""
+    s = float(scale)
+    v1, f1 = box_mesh((0.6 * s, 0.2 * s, 0.2 * s))
+    v2, f2 = box_mesh((0.2 * s, 0.4 * s, 0.2 * s), (-0.2 * s, 0.3 * s, 0.0))
+    return np.concatenate([v1, v2]), np.concatenate([f1, f2 + len(v1)])
+
+
+def lshape_symmetry(scale: float = 1.0) -> np.ndarray:
+    """The L-shape's one non-trivial symmetry (4, 4), model frame: both arms
+    are 0.6 long outside and 0.2 thick, so swapping x and y, flipping z and
+    shifting by (-0.2, 0.2, 0) maps the solid onto itself. A pose T and
+    T @ lshape_symmetry() render the same depth from every view."""
+    S = np.eye(4, dtype=np.float32)
+    S[:3, :3] = [[0.0, 1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, -1.0]]
+    S[:3, 3] = np.float32(scale) * np.array([-0.2, 0.2, 0.0], np.float32)
+    return S
+
 
 NNCase = tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]
 
@@ -103,8 +134,9 @@ def expanded_d2(q: np.ndarray, d: np.ndarray) -> np.ndarray:
 def nn_cases(seed: int = 1) -> dict[str, NNCase]:
     """Every K1 case by name: the main path's 4096 x 4096, the edge cases
     above, ragged sizes (1 x 1, M = 5 below the number of slices,
-    129 x 4097, 1000 x 3000, 300 x 20000), masks, and a 16k x 16k problem
-    that streams its data through several tiles."""
+    129 x 4097, 1000 x 3000, 300 x 20000), masks, a 16k x 16k problem that
+    streams its data through several tiles, and the sparse track step's
+    300 x 300."""
     rng = np.random.default_rng(seed)
     ones = lambda n: np.ones(n, bool)  # noqa: E731
     mask = lambda n, p: rng.uniform(size=n) < p  # noqa: E731
@@ -123,6 +155,8 @@ def nn_cases(seed: int = 1) -> dict[str, NNCase]:
         "all data invalid": (_cloud(rng, 500), ones(500), _cloud(rng, 2000), np.zeros(2000, bool)),
         "16k x 16k invalid masks": (_cloud(rng, 16384, 0.2), mask(16384, 0.95),
                                     _cloud(rng, 16384, 0.2), mask(16384, 0.95)),
+        "300x300 sparse track": (_cloud(rng, 300), mask(300, 0.95), _cloud(rng, 300),
+                                 mask(300, 0.95)),
     }
 
 
@@ -172,7 +206,10 @@ def raster_cases(seed: int = 2) -> dict[str, dict]:
     * a 61 x 45 window (neither side a multiple of the tile);
     * the 4096-face icosphere over the 320 x 240 half-resolution frame;
     * a template view of the bench box: its 12 faces over a full 640 x 480
-      frame from twice its diagonal, as the template database renders it.
+      frame from twice its diagonal, as the template database renders it;
+    * the L-shape's 24 faces padded to 256 over a full 640 x 480 frame from
+      twice its diagonal along (1, 1, 1), as the tracking scene's mesh camera
+      renders it.
     """
     rng = np.random.default_rng(seed)
     eye = np.eye(4, dtype=np.float32)
@@ -214,4 +251,11 @@ def raster_cases(seed: int = 2) -> dict[str, dict]:
     intr = Intrinsics.from_fov(60.0, 640, 480)
     out["bench box template view, 480x640 frame"] = dict(
         vertices=bv, faces=BOX_FACES, T=T.astype(np.float32), intr=intr, H=480, W=640)
+
+    lv, lf = lshape_mesh()
+    eye_dir = np.ones(3) / np.sqrt(3.0)
+    dist = 2.0 * float(np.linalg.norm(lv.max(0) - lv.min(0)))
+    T = GL_TO_CV @ look_at(eye_dir * dist, np.zeros(3), [0.0, 1.0, 0.0]).numpy()
+    out["L-shape 24 faces (256 padded), 480x640 frame"] = dict(
+        vertices=lv, faces=pad_faces(lf, 256), T=T.astype(np.float32), intr=intr, H=480, W=640)
     return out

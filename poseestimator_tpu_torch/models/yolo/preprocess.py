@@ -50,3 +50,14 @@ def letterbox(img: torch.Tensor, size: int = 640):
     meta = LetterboxMeta(scale=float(scale), pad_x=float(pad_x), pad_y=float(pad_y),
                          orig_h=h, orig_w=w)
     return out, meta
+
+
+def boxes_to_original(boxes_xyxy: torch.Tensor, meta: LetterboxMeta) -> torch.Tensor:
+    """Letterboxed-pixel boxes (..., 4) xyxy -> original image pixels,
+    clipped to the image."""
+    x1 = (boxes_xyxy[..., 0] - meta.pad_x) / meta.scale
+    y1 = (boxes_xyxy[..., 1] - meta.pad_y) / meta.scale
+    x2 = (boxes_xyxy[..., 2] - meta.pad_x) / meta.scale
+    y2 = (boxes_xyxy[..., 3] - meta.pad_y) / meta.scale
+    return torch.stack([x1.clamp(0, meta.orig_w), y1.clamp(0, meta.orig_h),
+                        x2.clamp(0, meta.orig_w), y2.clamp(0, meta.orig_h)], dim=-1)

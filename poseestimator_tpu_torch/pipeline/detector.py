@@ -1,0 +1,145 @@
+"""YOLO11-seg detector with the JAX package's ``Detector`` surface
+(counterpart of ``poseestimator_tpu/pipeline/detector.py``): letterbox ->
+YOLO11 -> DFL decode -> NMS -> proto masks, on the device.
+
+``model`` (the torch module) and ``variables`` (its state dict) are public:
+``Tracker`` fuses detection into the frame when a detector carries both.
+The polygon round trip of ``detect_mask`` needs OpenCV and is not ported.
+"""
+from __future__ import annotations
+
+import os
+from dataclasses import fields
+from typing import Mapping
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from ..models.yolo.decode import decode_boxes
+from ..models.yolo.masks import assemble_masks
+from ..models.yolo.model import YOLO11Seg
+from ..models.yolo.nms import Detections, nms
+from ..models.yolo.preprocess import boxes_to_original, letterbox
+from ..models.yolo.weights import variables_to_state_dict
+
+
+class Detector:
+    """YOLO11-seg detector.
+
+    Args:
+        yolo_weights: flax variables ``{"params", "batch_stats"}`` with numpy
+            leaves; a ``.npz`` holding them under ``"variables"``; an
+            Ultralytics checkpoint or state dict (a path, a mapping or an
+            ``nn.Module``). An orbax checkpoint directory is not supported.
+        nc: number of classes (must match the checkpoint).
+        scale: YOLO11 compound scale.
+        imgsz: square letterbox size.
+        device: default the card (an error when there is none); ``"cpu"``
+            runs on the CPU.
+    """
+
+    def __init__(self, yolo_weights, nc: int = 5, scale: str = "n", imgsz: int = 640,
+                 max_det: int = 32, pre_nms: int = 1024, device: str | torch.device = "cuda"):
+        self.device = resolve_device(device)
+        self.imgsz = imgsz
+        self.max_det = max_det
+        # pre-NMS candidate pool: plenty at product confidence (0.25+)
+        self.pre_nms = pre_nms
+        model = YOLO11Seg(nc=nc, scale=scale)
+        model.load_state_dict(_load_variables(yolo_weights), strict=True)
+        self.model = model.to(self.device).eval()
+        self.variables = self.model.state_dict()
+
+    def _image(self, img) -> torch.Tensor:
+        if torch.is_tensor(img):
+            return img.to(self.device)
+        return torch.as_tensor(np.asarray(img), device=self.device)
+
+    @torch.no_grad()
+    def __call__(self, img, conf: float = 0.25, iou: float = 0.7, with_masks: bool = True):
+        """``(Detections, masks (D, H, W) bool or None, boxes_orig (D, 4))``
+        for one (H, W, 3) image; ``with_masks=False`` skips the masks."""
+        img = self._image(img)
+        h, w = img.shape[:2]
+        lb, meta = letterbox(img, self.imgsz)
+        raw = self.model(lb.permute(2, 0, 1)[None])
+        boxes, cls, mc = decode_boxes(raw)
+        det = nms(boxes[0], cls[0], mc[0], conf_thres=conf, iou_thres=iou,
+                  pre_nms=self.pre_nms, max_det=self.max_det)
+        masks = None
+        if with_masks:
+            masks = assemble_masks(raw["proto"][0], det.coeffs, det.boxes, det.valid, meta, h, w)
+        return det, masks, boxes_to_original(det.boxes, meta)
+
+    @torch.no_grad()
+    def predict_batch(self, imgs, conf: float = 0.25, iou: float = 0.7):
+        """A same-size batch (B, H, W, 3) -> ``(Detections, boxes_orig)``,
+        each field stacked along a leading batch axis (no masks)."""
+        imgs = self._image(imgs)
+        lbs, metas = zip(*(letterbox(im, self.imgsz) for im in imgs))
+        raw = self.model(torch.stack(lbs).permute(0, 3, 1, 2))
+        boxes, cls, mc = decode_boxes(raw)
+        dets = [nms(boxes[b], cls[b], mc[b], conf_thres=conf, iou_thres=iou,
+                    pre_nms=self.pre_nms, max_det=self.max_det) for b in range(len(lbs))]
+        stacked = Detections(**{f.name: torch.stack([getattr(d, f.name) for d in dets])
+                                for f in fields(Detections)})
+        boxes_orig = torch.stack([boxes_to_original(d.boxes, m) for d, m in zip(dets, metas)])
+        return stacked, boxes_orig
+
+
+def _is_tensor_map(d) -> bool:
+    return all(hasattr(v, "shape") for v in d.values())
+
+
+def _torch_load(path):
+    """``torch.load`` of a full Ultralytics checkpoint without Ultralytics:
+    classes that do not import unpickle as empty ``nn.Module``s, enough to
+    walk to ``state_dict()``."""
+    import pickle
+
+    class StubUnpickler(pickle.Unpickler):
+        def find_class(self, module, name):
+            try:
+                return super().find_class(module, name)
+            except (ImportError, AttributeError):
+                return type(name, (torch.nn.Module,), {})
+
+    class StubPickleModule:
+        Unpickler = StubUnpickler
+
+        @staticmethod
+        def load(f, **kw):
+            return StubUnpickler(f).load()
+
+    return torch.load(path, map_location="cpu", weights_only=False,
+                      pickle_module=StubPickleModule)
+
+
+def _load_variables(source) -> dict[str, torch.Tensor]:
+    """A weights source -> the port model's float32 state dict (the port's
+    ``variables``)."""
+    if isinstance(source, (str, os.PathLike)):
+        path = str(source)
+        if os.path.isdir(path):
+            raise NotImplementedError(
+                "orbax checkpoint directories are not supported; export the variables "
+                "to .npz or an Ultralytics-style state dict")
+        if path.endswith(".npz"):
+            return variables_to_state_dict(np.load(path, allow_pickle=True)["variables"].item())
+        source = _torch_load(path)
+    if isinstance(source, Mapping) and "params" in source:
+        return variables_to_state_dict(source)
+    if isinstance(source, Mapping) and "model" in source and not _is_tensor_map(source):
+        source = source["model"]
+    if hasattr(source, "state_dict"):
+        source = source.state_dict()
+    if not isinstance(source, Mapping):
+        raise TypeError(f"cannot interpret checkpoint of type {type(source)}")
+    out = {}
+    for k, v in source.items():
+        if ".dfl." in k:  # the fixed DFL projection: decode_boxes computes it
+            continue
+        v = v if torch.is_tensor(v) else torch.as_tensor(np.asarray(v))
+        out[k] = v.float() if v.is_floating_point() else v  # fp16 checkpoints
+    return out

@@ -1,4 +1,5 @@
-"""Point-to-point ICP (counterpart of ``icp_point_to_point`` in
+"""Point-to-point and point-to-plane ICP (counterparts of
+``icp_point_to_point`` and ``icp_point_to_plane`` in
 ``poseestimator_tpu/registration/icp.py``).
 
 Each evaluation is one nearest-neighbour pass (kernel K1 on the card),
@@ -173,6 +174,79 @@ def icp_point_to_point(
         J = torch.cat([-_skew(pts), eye], dim=-1)  # (N, 3, 6)
         r_sq = ((pts - q) ** 2).sum(1)
         cov = _gn_covariance(J, r_sq, w, inl.sum(), 3)
+    return ICPResult(T=T, fitness=fitness, inlier_rmse=rmse, n_iters=it, cov=cov)
+
+
+def icp_point_to_plane(
+    src: PointCloud,
+    dst: PointCloud,
+    max_corr_dist,
+    init_T: Optional[torch.Tensor] = None,
+    max_iterations: int = 30,
+    relative_fitness: float = 1e-6,
+    relative_rmse: float = 1e-6,
+    robust: str = "none",
+    with_cov: bool = False,
+) -> ICPResult:
+    """Point-to-plane ICP on ``dst.normals``: each iteration solves the
+    6x6 small-angle system of ``sum w (n . (R p + t - q))^2`` for the twist
+    (omega, t). ``robust`` weights the plane distances with the same IRLS
+    kernels as ``icp_point_to_point``; the exit test is Open3D's, with no
+    step extrapolation."""
+    if dst.normals is None:
+        raise ValueError("icp_point_to_plane requires dst.normals")
+    dev = src.points.device
+    f32 = torch.float32
+    if init_T is None:
+        init_T = torch.eye(4, dtype=f32, device=dev)
+    max_corr_dist = torch.as_tensor(max_corr_dist, dtype=f32, device=dev)
+    n_src = torch.clamp(src.valid.sum(), min=1)
+    eye6 = torch.eye(6, dtype=f32, device=dev)
+    x_axis = torch.tensor([1.0, 0.0, 0.0], dtype=f32, device=dev)
+
+    def evaluate(T):
+        moved = src.transform(T)
+        d, idx, found = nearest_neighbor(moved.points, moved.valid, dst.points, dst.valid)
+        inl = src.valid & found & (d <= max_corr_dist)
+        n_inl = inl.sum()
+        fitness = n_inl.to(f32) / n_src.to(f32)
+        rmse = torch.sqrt(torch.where(inl, d * d, torch.zeros_like(d)).sum()
+                          / torch.clamp(n_inl, min=1))
+        return moved.points, idx, inl, fitness, rmse
+
+    T = init_T
+    p, idx, inl, fitness, rmse = evaluate(T)
+    prev_fitness, prev_rmse = fitness + 1.0, rmse + 1.0
+    it = 0
+    while it < max_iterations and bool(((prev_fitness - fitness).abs() > relative_fitness)
+                                       | ((prev_rmse - rmse).abs() > relative_rmse)):
+        q, n = dst.points[idx], dst.normals[idx]
+        r = (n * (q - p)).sum(1)  # residual n . (q - p)
+        w = inl.to(f32)
+        if robust != "none":
+            w = w * _robust_weights(r.abs(), robust, max_corr_dist * 0.5)
+        J = torch.cat([torch.linalg.cross(p, n, dim=1), n], dim=1)  # rows [p x n, n]
+        Jw = J * w[:, None]
+        # solve_ex: no host synchronisation for the error check
+        x = torch.linalg.solve_ex(Jw.T @ J + 1e-9 * eye6, Jw.T @ r).result  # (omega, t)
+        angle = torch.linalg.vector_norm(x[:3])
+        axis = torch.where(angle > 1e-12, x[:3] / torch.clamp(angle, min=1e-12), x_axis)
+        T = make_T(axis_angle_to_R(axis, angle), x[3:]) @ T
+        prev_fitness, prev_rmse = fitness, rmse
+        p, idx, inl, fitness, rmse = evaluate(T)
+        it += 1
+
+    cov = None
+    if with_cov:
+        # scalar residual n . (x - q) at the final pose; its Jacobian wrt
+        # the left twist is [x x n, n], the rows of the in-loop solve
+        q, n = dst.points[idx], dst.normals[idx]
+        r = (n * (p - q)).sum(1)
+        w = inl.to(f32)
+        if robust != "none":
+            w = w * _robust_weights(r.abs(), robust, max_corr_dist * 0.5)
+        J = torch.cat([torch.linalg.cross(p, n, dim=1), n], dim=1)[:, None, :]
+        cov = _gn_covariance(J, r * r, w, inl.sum(), 1)
     return ICPResult(T=T, fitness=fitness, inlier_rmse=rmse, n_iters=it, cov=cov)
 
 

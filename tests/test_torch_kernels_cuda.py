@@ -137,3 +137,29 @@ def test_wrappers_raise_on_other_devices():
         tnn.fused_nn(q, v, q, v)
     with pytest.raises(RuntimeError):
         traster.raster(torch.zeros(8, 12, device="meta"), torch.zeros(8, 4, device="meta"), 8, 8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("angle", [0.1, 0.18, 0.34])
+def test_raster_kernel_on_the_tracker_scene(angle):
+    """K2 over the full 640 x 480 frame of the tracker scene's mesh camera:
+    the L-shape's 24 faces padded to 256, turned about z as the scene
+    turns."""
+    _need_card()
+    from poseestimator_tpu_torch.geom3d.se3 import look_at
+    from poseestimator_tpu_torch.render.mesh import pad_faces
+
+    v, f = kc.lshape_mesh()
+    d = np.ones(3) / np.sqrt(3.0)
+    base = kc.GL_TO_CV @ look_at(d * 2.0 * float(np.linalg.norm(v.max(0) - v.min(0))),
+                                 np.zeros(3), [0.0, 1.0, 0.0]).numpy()
+    P = np.eye(4)
+    P[:2, :2] = [[np.cos(angle), -np.sin(angle)], [np.sin(angle), np.cos(angle)]]
+    T = torch.from_numpy((P @ base).astype(np.float32)).cuda()
+    coef, bbox = traster.face_coeffs(torch.from_numpy(v).cuda(),
+                                     torch.from_numpy(pad_faces(f, 256)).cuda(), T,
+                                     Intrinsics.from_fov(60.0, 640, 480), near=0.01)
+    izk = traster.raster(coef, bbox, 480, 640)
+    torch.cuda.synchronize()
+    assert torch.equal(izk, traster.raster_plain(coef, 480, 640, chunk=64))
+    assert int((izk > 0).sum()) > 10000
