@@ -23,7 +23,33 @@ port's two paths and checks their accuracy against ground truth:
   the full-width YOLO11n-seg on seeded random weights, through a scripted
   run of misses (TRACK -> LOST -> INIT with a second search -> TRACK) and
   the multi-frame init rollout; the kernels held against their plain
-  versions at the shapes the tracker gives them.
+  versions at the shapes the tracker gives them; (d) dense with the
+  evaluation's degraded masks (2 px, ``degrade_mask``) and (e) dense through
+  the point-splat camera (the splat-stress row), each to the JAX package's
+  bench budget; then point-to-plane ICP and the Huber and Tukey kernels once
+  each on a view of the bench box that shows three faces;
+- multi-object tracking, ``MultiTracker``, on the scene of the JAX
+  package's ``tools/eval_tracking.py --objects 3`` (three L-shapes offset
+  0.65 diag apart, 2.3 + 0.12 i diag away, turned 0.1 + 1.1 i rad; 5 static
+  frames, then 0.008 rad a frame; the exact-raster camera; a perfect
+  per-instance-mask detector; dense tracking): (m1) 320x240, 40 frames;
+  (m2) the same with classes (0, 1, 0), the second class a 0.5 x 0.3 x 0.2
+  box; (m3) 640x480, 30 frames; (m4) the batched step alone at 640x480 for
+  B = 1, 3, 8. Each of (m1)-(m3) prints one ``{"multi": {...}}`` line:
+  ADD-S mean and p95 over the frames with all three tracks (against the
+  nearer symmetric twin of the track's instance; the plain figure beside
+  it), identity switches, the frame all three were acquired, the median
+  frame with a full batch, and the batched K1 and K2 launches per tracked
+  frame, which must be max(n_iters) + 1 and 1 (the camera's renders and
+  the searches launch the unbatched entries, counted apart). Each holds
+  its first full batch's tracks bit for bit to themselves run alone (B =
+  1) and through the unbatched track step, on the same draws; (m4) does so
+  at B = 3 and 8. The gates: ADD-S mean <= 1.5 cm and no identity switch.
+  Then the batched K1 and K2 are held bit for bit against their batched
+  plain versions at every batched shape the phase gave them, and timed.
+
+The search phase also runs one search twice from one generator state on
+observation (b) and demands bit-equal poses and rankings.
 
 Any failed phase exits nonzero.
 
@@ -55,10 +81,16 @@ import numpy as np
 FRAMES = 30
 ADDS_BUDGET_CM = 1.5  # dense tracking budget of the JAX package's bench
 SPARSE_BUDGET_CM = 2.5  # its sparse (300-point) budget
+DEGRADED_BUDGET_CM = 3.0  # its degraded-mask budget
+SPLAT_BUDGET_CM = 3.0  # its splat-stress budget
 SEARCH_REPS = 5  # timed warm searches per observation
 # the tracker scene: static warm-up frames, then frames turning about z
 TRACK_WARM, TRACK_MOTION, TRACK_ROT = 12, 30, 0.008
 ROLLOUT = 2  # init rollout frames of the tracker's part (c)
+# the multi-object scene: instances, frames after the static ones, turn a frame
+MULTI_OBJ = 3
+MULTI_FRAMES = {"m1": 40, "m2": 40, "m3": 30}
+MULTI_ROT = 0.008
 # non-tensor float32 peak, HBM rate, and single instructions a second
 # (132 SMs x 128 lanes x 1.98 GHz): the rate of an FMA-free kernel
 H100 = {"f32_ops": 67e12, "bytes": 3.35e12, "lane_instr": 132 * 128 * 1.98e9}
@@ -171,18 +203,22 @@ def nn_issue_ms(n: int, m: int) -> float:
     return 8.0 * n * m / H100["lane_instr"] * 1e3
 
 
-def raster_bound(bbox, H: int, W: int) -> tuple[float, str]:
-    # ~20 float32 operations per (pixel, face) pair that the bbox cull keeps
-    # (four planes at 2 mul + 2 add, three compares, a max); 64 B per face
-    # read once, 4 B per pixel written once
+def raster_pairs(bbox, H: int, W: int) -> float:
+    """(pixel, face) pairs that the bbox cull keeps."""
     b = bbox.double().cpu().numpy()
     live = b[:, 0] <= b[:, 1]
     x0 = np.clip(np.ceil(b[live, 0]), 0, W)
     x1 = np.clip(np.floor(b[live, 1]) + 1, 0, W)
     y0 = np.clip(np.ceil(b[live, 2]), 0, H)
     y1 = np.clip(np.floor(b[live, 3]) + 1, 0, H)
-    pairs = float((np.clip(x1 - x0, 0, None) * np.clip(y1 - y0, 0, None)).sum())
-    return bound_ms(20.0 * pairs, 64 * b.shape[0] + 4 * H * W)
+    return float((np.clip(x1 - x0, 0, None) * np.clip(y1 - y0, 0, None)).sum())
+
+
+def raster_bound(bbox, H: int, W: int) -> tuple[float, str]:
+    # ~20 float32 operations per (pixel, face) pair that the bbox cull keeps
+    # (four planes at 2 mul + 2 add, three compares, a max); 64 B per face
+    # read once, 4 B per pixel written once
+    return bound_ms(20.0 * raster_pairs(bbox, H, W), 64 * bbox.shape[0] + 4 * H * W)
 
 
 def check_fused_nn(torch, fnn, dev) -> dict:
@@ -434,6 +470,19 @@ def search_phase(torch, dev, kc, fnn, rs, intr, tmp: str, profile_path=None) -> 
                 "batched_icp": [{"chains": b, "evaluations": e} for b, e in chain_evals],
                 "winner_template": cands[0][2], "scores": [c[0] for c in cands],
                 "adds_cm": adds}
+            if name.startswith("b"):
+                # voxel means, RANSAC draws and all: one search's pose and
+                # ranking again, bit for bit, from the same generator state
+                again = []
+                for _ in range(2):
+                    est.generator.manual_seed(0)
+                    again.append(search())
+                (H1, _, c1), (H2, _, c2) = again
+                if not (np.array_equal(H1, H2) and len(c1) == len(c2) and all(
+                        a[0] == b[0] and a[2] == b[2] and np.array_equal(a[1], b[1])
+                        for a, b in zip(c1, c2))):
+                    fail(f"search {name}: two searches from one state differ")
+                results[name]["repeat_bit_equal"] = True
             if profile_path and name == list(scenes)[-1]:
                 results[name]["profile"] = profile_calls(torch, search, 2, profile_path, "search")
             log(f"search {name}: median {np.median(times):.2f} ms over {SEARCH_REPS} warm calls "
@@ -474,7 +523,7 @@ def tracker_phase(torch, dev, kc, fnn, rs, tmp: str, width: int = 640, height: i
     returns the kernels' inputs at every shape of parts (a) and (b) (among
     them K1 300 x 300 and K2 over the camera's full frame). ``width`` x
     ``height`` is the camera, ``imgsz`` the detector's letterbox."""
-    from poseestimator_tpu_torch.camera import SyntheticCamera
+    from poseestimator_tpu_torch.camera import SyntheticCamera, degrade_mask
     from poseestimator_tpu_torch.geom3d import knn as knn_mod
     from poseestimator_tpu_torch.geom3d.camera import Intrinsics
     from poseestimator_tpu_torch.geom3d.se3 import look_at
@@ -559,32 +608,50 @@ def tracker_phase(torch, dev, kc, fnn, rs, tmp: str, width: int = 640, height: i
             return fused
 
         def _rollout_init(self, H, candidates):
-            n0 = steps["n"]
+            n0, c0 = steps["n"], steps["calls"]
             out = super()._rollout_init(H, candidates)
             self.rollouts.append({"basins": len(self._distinct_basins(candidates)),
-                                  "track_steps": steps["n"] - n0, "margin": out[1]})
+                                  "track_steps": steps["n"] - n0,
+                                  "batched_steps": steps["calls"] - c0, "margin": out[1]})
             return out
 
-    steps = {"n": 0}
-    orig_step = trk.track_step
+    steps = {"n": 0, "calls": 0}
+    orig_batched = trk.track_step_batched
 
-    def counted_step(*args, **kw):
-        steps["n"] += 1
-        return orig_step(*args, **kw)
+    def counted_batched(*args, **kw):  # the rollout: one batched step per frame
+        steps["n"] += args[4].shape[0]
+        steps["calls"] += 1
+        return orig_batched(*args, **kw)
+
+    class DegradedMaskDetector(PerfectMaskDetector):
+        """The perfect mask through the evaluation's segmentation-error
+        model (``degrade_mask``, 2 px, seed 0)."""
+
+        def __init__(self, camera, px=2):
+            super().__init__(camera)
+            self.px, self.rng = px, np.random.default_rng(0)
+
+        def __call__(self, img, conf=0.7, iou=0.7):
+            det, mask, boxes = super().__call__(img, conf, iou)
+            return det, degrade_mask(mask[0], self.px, self.rng)[None], boxes
 
     model_pts = None
     nn_inputs, raster_inputs = {}, {}
     orig_nn, orig_raster = knn_mod.fused_nn, rs.raster
 
-    def run(name, target_pts, fused=False):
+    def run(name, target_pts, fused=False, detector=None, splat=False):
         nonlocal model_pts
         est = PoseEstimator(cad, os.path.join(tmp, "lviews"), intr, target_points=target_pts or 100,
                             seed=0, device=dev)
         if model_pts is None:  # the ADD-S model points of the evaluation
             model_pts = torch.from_numpy(
                 est.mesh.sample_points_uniformly(512, np.random.default_rng(0))[0]).to(dev)
-        cam = SyntheticCamera(model_pts.cpu().numpy(), np.zeros((512, 3), np.float32), poses,
-                              intr, mesh=(est._mesh_v, est._mesh_f), device=dev)
+        if splat:  # the point-splat instrument over the evaluation's 150k CAD samples
+            pts = est.mesh.sample_points_uniformly(150_000, np.random.default_rng(0))[0]
+            cam = SyntheticCamera(pts, np.zeros_like(pts), poses, intr, device=dev)
+        else:
+            cam = SyntheticCamera(model_pts.cpu().numpy(), np.zeros((512, 3), np.float32), poses,
+                                  intr, mesh=(est._mesh_v, est._mesh_f), device=dev)
         cfg = dict(target_pts=target_pts, icp_dist=0.01, warmup_frames=3, max_init_frames=20,
                    device=dev)
         if fused:
@@ -597,7 +664,7 @@ def tracker_phase(torch, dev, kc, fnn, rs, tmp: str, width: int = 640, height: i
                                    **cfg)
             tracker.fused_calls, tracker.rollouts = 0, []
         else:
-            tracker = trk.Tracker(cam, est, PerfectMaskDetector(cam), **cfg)
+            tracker = trk.Tracker(cam, est, (detector or PerfectMaskDetector)(cam), **cfg)
         rows = []
         while True:
             fnn.fused_nn_stats.launches = 0
@@ -661,12 +728,16 @@ def tracker_phase(torch, dev, kc, fnn, rs, tmp: str, width: int = 640, height: i
         parts["a"] = run("a: dense", 0)
         parts["b"] = run("b: sparse, 300 points", 300)
         knn_mod.fused_nn, rs.raster = orig_nn, orig_raster
-        trk.track_step = counted_step
+        trk.track_step_batched = counted_batched
         parts["c"] = run("c: fused frame, misses and re-init", 0, fused=True)
+        trk.track_step_batched = orig_batched
+        parts["d"] = run("d: dense, degraded mask (2 px)", 0, detector=DegradedMaskDetector)
+        parts["e"] = run("e: dense, splat-stress observation", 0, splat=True)
     finally:
-        knn_mod.fused_nn, rs.raster, trk.track_step = orig_nn, orig_raster, orig_step
+        knn_mod.fused_nn, rs.raster, trk.track_step_batched = orig_nn, orig_raster, orig_batched
 
-    for key, budget in (("a", ADDS_BUDGET_CM), ("b", SPARSE_BUDGET_CM)):
+    for key, budget in (("a", ADDS_BUDGET_CM), ("b", SPARSE_BUDGET_CM),
+                        ("d", DEGRADED_BUDGET_CM), ("e", SPLAT_BUDGET_CM)):
         p = parts[key]
         if p["motion_frames_tracked"] != TRACK_MOTION:
             fail(f"tracker {p['part']}: {p['motion_frames_tracked']} of {TRACK_MOTION} motion "
@@ -690,15 +761,391 @@ def tracker_phase(torch, dev, kc, fnn, rs, tmp: str, width: int = 640, height: i
     for r in c["rollouts"]:
         if r["basins"] < 2:
             log(f"tracker {c['part']}: a search gave one basin; its rollout had nothing to run")
-        elif r["track_steps"] != ROLLOUT * r["basins"]:
+        elif r["track_steps"] != ROLLOUT * r["basins"] or r["batched_steps"] != ROLLOUT:
             fail(f"tracker {c['part']}: a rollout of {r['basins']} basins ran "
-                 f"{r['track_steps']} track steps, not {ROLLOUT * r['basins']}")
+                 f"{r['track_steps']} tracks in {r['batched_steps']} batched steps, not "
+                 f"{ROLLOUT * r['basins']} in {ROLLOUT}")
     if not any(r["basins"] >= 2 for r in c["rollouts"]):
         log(f"tracker {c['part']}: no search gave two basins: the rollout never ran")
     if (300, 300) not in nn_inputs or not any(k[:2] == (height, width) for k in raster_inputs):
         fail(f"tracker: no K1 300x300 ({sorted(nn_inputs)}) or full-frame K2 "
              f"({sorted(raster_inputs)}) input recorded")
     return {"parts": parts, "nn_inputs": nn_inputs, "raster_inputs": raster_inputs}
+
+
+def icp_options_phase(torch, dev, kc, fnn, rs, track_step) -> dict:
+    """Point-to-plane ICP and the Huber and Tukey kernels, once each, on a
+    view of the bench box that shows three faces (0.3 m out, 640x480, the
+    box turned 0.6 rad about x and 0.7 rad about y), from a start one
+    motion of 0.05 rad and 7 mm off. Per option: ADD before and after (mm,
+    over 2000 surface points), ICP iterations and K1 launches (counts set
+    to 0 just before each step)."""
+    from poseestimator_tpu_torch.geom3d.camera import Intrinsics
+    from poseestimator_tpu_torch.render.mesh import pad_faces
+
+    def rot(w):
+        th = float(np.linalg.norm(w))
+        k = np.asarray(w) / th
+        K = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]], [-k[1], k[0], 0]])
+        return np.eye(3) + np.sin(th) * K + (1 - np.cos(th)) * K @ K
+
+    intr = Intrinsics.from_fov(60.0, 640, 480)
+    T0 = np.eye(4)
+    T0[:3, :3] = rot([0.6, 0.0, 0.0]) @ rot([0.0, 0.7, 0.0])
+    T0[2, 3] = 0.3
+    D = np.eye(4)
+    D[:3, :3] = rot([0.0, 0.0, 0.05])
+    D[:3, 3] = [0.006, -0.003, 0.002]
+    T0, T_obs = (torch.from_numpy(a.astype(np.float32)).to(dev) for a in (T0, D @ T0))
+    mv = torch.from_numpy(kc.box_vertices()).to(dev)
+    mf = torch.from_numpy(pad_faces(kc.BOX_FACES, 256).astype(np.int64)).to(dev)
+    depth = rs.render_depth_mesh(mv, mf, T_obs, intr, near=0.01, far=5.0)
+    pts = torch.from_numpy(box_surface(np.random.default_rng(1), 2000, kc.BOX_HALF)).to(dev)
+
+    def add_mm(T):
+        return float((pts @ (T[:3, :3] - T_obs[:3, :3]).T + (T[:3, 3] - T_obs[:3, 3]))
+                     .norm(dim=1).mean()) * 1e3
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    out = {"start_add_mm": add_mm(T0), "options": {}}
+    for variant, kernel in (("p2l", "none"), ("p2l", "huber"), ("p2l", "tukey"),
+                            ("p2p", "huber"), ("p2p", "tukey")):
+        fnn.fused_nn_stats.launches = 0
+        r = track_step(mv, mf, depth > 0, depth, T0, intr, 0.02, icp_variant=variant,
+                       icp_kernel=kernel, generator=gen)
+        torch.cuda.synchronize()
+        k1 = fnn.fused_nn_stats.launches
+        row = {"add_mm": add_mm(r.T), "n_iters": r.n_iters, "k1_launches": k1,
+               "fitness": float(r.fitness)}
+        out["options"][f"{variant}/{kernel}"] = row
+        if k1 != r.n_iters + 1:
+            fail(f"ICP {variant}/{kernel}: {k1} K1 launches for {r.n_iters} iterations")
+        if not row["add_mm"] < out["start_add_mm"]:
+            fail(f"ICP {variant}/{kernel}: ADD {row['add_mm']:.4f} mm, no better than the "
+                 f"start's {out['start_add_mm']:.4f} mm")
+    log(json.dumps({"icp_options": out}))
+    return out
+
+
+def multi_phase(torch, dev, kc, fnn, rs, tmp: str, small=(320, 240), full=(640, 480),
+                profile_path=None) -> dict:
+    """Multi-object tracking on the scene of the JAX package's
+    ``tools/eval_tracking.py --objects 3`` (``kernel_cases.multi_object_poses``;
+    the exact-raster mesh camera; MULTI_OBJ + 2 static frames, then frames
+    turning MULTI_ROT a frame; a perfect per-instance-mask detector; dense
+    tracking, max_objects 3, conf 0.7, iou_match 0.2, icp_dist 0.01):
+    (m1) one CAD at 320x240, (m2) two classes at 320x240, (m3) one CAD at
+    640x480, (m4) the batched step alone at 640x480 for B = 1, 3, 8. See the
+    module docstring for what each part prints and is held to.
+    ``profile_path``: also trace 3 batched steps at B = 3 there."""
+    from poseestimator_tpu_torch.camera import SyntheticCamera, degrade_mask
+    from poseestimator_tpu_torch.geom3d import knn as knn_mod
+    from poseestimator_tpu_torch.geom3d.camera import Intrinsics
+    from poseestimator_tpu_torch.models.yolo.nms import Detections
+    from poseestimator_tpu_torch.pipeline import PoseEstimator
+    from poseestimator_tpu_torch.pipeline import multi_tracking as tmt
+    from poseestimator_tpu_torch.pipeline import tracking as trk
+    from poseestimator_tpu_torch.pipeline.window import window_dims
+    from poseestimator_tpu_torch.utils.plyio import write_ply
+
+    lv, lf = kc.lshape_mesh()
+    bv, bf = kc.box_mesh((0.5, 0.3, 0.2))
+    diag = float(np.linalg.norm(lv.max(0) - lv.min(0)))
+    write_ply(os.path.join(tmp, "mlshape.ply"), lv, faces=lf)
+    write_ply(os.path.join(tmp, "mbox.ply"), bv, faces=bf)
+    flips = [np.diag([1.0, -1.0, -1.0, 1.0]), np.diag([-1.0, 1.0, -1.0, 1.0]),
+             np.diag([-1.0, -1.0, 1.0, 1.0])]
+    syms = {0: [np.eye(4), kc.lshape_symmetry()], 1: [np.eye(4)] + flips}
+    syms = {c: [torch.from_numpy(np.asarray(S, np.float32)).to(dev) for S in v]
+            for c, v in syms.items()}
+
+    class MultiMaskDetector:
+        """One detection per visible instance, from the camera's
+        per-instance silhouettes (the evaluation's perfect multi-mask
+        detector); ``degrade_px`` puts each through ``degrade_mask``."""
+
+        def __init__(self, camera, classes, max_det=8, degrade_px=0, seed=0):
+            self.camera, self.classes, self.max_det = camera, classes, max_det
+            self.px, self.rng = degrade_px, np.random.default_rng(seed)
+
+        def __call__(self, img, conf=0.7, iou=0.7):
+            ms = torch.from_numpy(self.camera.object_masks).to(dev)
+            if self.px > 0:
+                ms = torch.stack([degrade_mask(m, self.px, self.rng) for m in ms])
+            D = self.max_det
+            masks = torch.zeros((D,) + tuple(ms.shape[1:]), dtype=torch.bool, device=dev)
+            boxes = np.zeros((D, 4), np.float32)
+            cls = np.zeros(D, np.int64)
+            j = 0
+            for i, m in enumerate(ms[:D]):
+                ys, xs = np.nonzero(m.cpu().numpy())
+                if len(xs) == 0:
+                    continue
+                masks[j] = m
+                boxes[j] = (xs.min(), ys.min(), xs.max(), ys.max())
+                cls[j] = self.classes[i]
+                j += 1
+            valid = torch.arange(D, device=dev) < j
+            det = Detections(boxes=torch.from_numpy(boxes).to(dev), scores=valid.float(),
+                             classes=torch.from_numpy(cls).to(dev),
+                             coeffs=torch.zeros(D, 32, device=dev), valid=valid)
+            return det, masks, torch.from_numpy(boxes).to(dev)
+
+    calls = []  # one entry per batched step: B, n_iters, and the first full batch's inputs
+    orig_step = tmt.track_step_batched
+
+    def recorded_step(mesh_v, mesh_f, masks, depth, Ts, intr, dists, win_hw="auto",
+                      target_pts=0, icp_pose_tol=1e-4, generator=None, draws=None):
+        # the draws the step would make, made here so that it can be run again
+        win = window_dims(intr.scaled(2), win_hw)
+        draws = [trk.step_draws(intr, win, target_pts, generator, depth.device)
+                 for _ in range(Ts.shape[0])]
+        args = (mesh_v, mesh_f, masks, depth, Ts, intr, dists)
+        kw = dict(win_hw=win_hw, target_pts=target_pts, icp_pose_tol=icp_pose_tol)
+        res = orig_step(*args, **kw, draws=draws)
+        entry = {"B": Ts.shape[0], "n_iters": list(res.n_iters)}
+        if Ts.shape[0] == MULTI_OBJ and not any("inputs" in c for c in calls):
+            entry["inputs"] = ([a.clone() if torch.is_tensor(a) else a for a in args], kw,
+                               draws, res)
+        calls.append(entry)
+        return res
+
+    nn_inputs, raster_inputs = {}, {}
+    orig_nn, orig_raster = knn_mod.fused_nn_batched, rs.raster_batched
+
+    def run(name, intr, frames, classes, est_by_cls):
+        cams = {c: (e._mesh_v, e._mesh_f) for c, e in est_by_cls.items()}
+        models = {c: torch.from_numpy(e.mesh.sample_points_uniformly(
+            512, np.random.default_rng(c))[0]).to(dev) for c, e in est_by_cls.items()}
+        poses = ([kc.multi_object_poses(MULTI_OBJ, diag, 0.0)] * (MULTI_OBJ + 2)
+                 + [kc.multi_object_poses(MULTI_OBJ, diag, MULTI_ROT * (k + 1))
+                    for k in range(frames)])
+        cam = SyntheticCamera(lv, np.zeros_like(lv), poses, intr,
+                              instance_meshes=[cams[c] for c in classes], device=dev)
+        est = est_by_cls if len(est_by_cls) > 1 else est_by_cls[0]
+        mt = tmt.MultiTracker(cam, est, MultiMaskDetector(cam, classes), max_objects=MULTI_OBJ,
+                              target_pts=0, conf=0.7, iou_match=0.2, icp_dist=0.01, seed=0,
+                              device=dev)
+        calls.clear()
+        rows, assign, switches, acquired = [], {}, 0, None
+        for k in range(len(poses)):
+            for c in (fnn.fused_nn_batched_stats, rs.raster_batched_stats):
+                c.launches = 0
+            n_calls = len(calls)
+            t = time.perf_counter()
+            res = mt.step()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) * 1e3
+            row = {"frame": k + 1, "ms": ms, "k1": fnn.fused_nn_batched_stats.launches,
+                   "k2": rs.raster_batched_stats.launches, "tracks": len(res.tracks),
+                   "steps": calls[n_calls:], "spawned": "init" in res.timings}
+            if len(row["steps"]) > 1:
+                fail(f"multi {name}: {len(row['steps'])} batched steps in one frame")
+            if row["steps"]:
+                want = max(row["steps"][0]["n_iters"]) + 1
+                if row["k1"] != want or row["k2"] != 1:
+                    fail(f"multi {name} frame {k + 1}: {row['k1']} K1 / {row['k2']} K2 "
+                         f"batched launches, expected {want} / 1")
+            if len(res.tracks) == MULTI_OBJ:
+                acquired = acquired or k + 1
+                gts = torch.from_numpy(cam.current_gt).to(dev)
+                errs, plain = [], []
+                for tr in res.tracks:
+                    cand = [i for i in range(MULTI_OBJ) if classes[i] == tr.class_id]
+                    T = torch.from_numpy(np.asarray(tr.T_out, np.float32)).to(dev)
+                    e = [adds_sym_cm(torch, models[tr.class_id], T, gts[i],
+                                     syms[tr.class_id])[0] for i in cand]
+                    j = cand[int(np.argmin(e))]
+                    if assign.get(tr.track_id, j) != j:
+                        switches += 1
+                    assign[tr.track_id] = j
+                    errs.append(min(e))
+                    plain.append(adds_cm(torch, models[tr.class_id], T, gts[j]))
+                row["adds_cm"], row["adds_plain_cm"] = errs, plain
+            rows.append(row)
+        scored = [r for r in rows if "adds_cm" in r]
+        batched = [r for r in rows if r["steps"]]
+        if not scored:
+            fail(f"multi {name}: the {MULTI_OBJ} instances were never all tracked")
+        adds = np.concatenate([r["adds_cm"] for r in scored])
+        full = [r for r in batched if r["steps"][0]["B"] == MULTI_OBJ and not r["spawned"]]
+        out = {"part": name, "camera": [intr.width, intr.height], "classes": classes,
+               "frames": len(rows), "frames_scored": len(scored), "acquired_at_frame": acquired,
+               "adds_mean_cm": float(adds.mean()), "adds_p95_cm": float(np.percentile(adds, 95)),
+               "adds_plain_mean_cm": float(np.concatenate([r["adds_plain_cm"]
+                                                           for r in scored]).mean()),
+               "per_object_adds_cm": np.mean([r["adds_cm"] for r in scored], 0).tolist(),
+               "id_switches": switches,
+               "step_ms_median": float(np.median([r["ms"] for r in full])),
+               "batch_ms_median_per_object": float(np.median([r["ms"] for r in full])) / MULTI_OBJ,
+               "k1_per_tracked_frame": float(np.mean([r["k1"] for r in batched])),
+               "k2_per_tracked_frame": float(np.mean([r["k2"] for r in batched])),
+               "max_n_iters_plus_1_mean": float(np.mean([max(r["steps"][0]["n_iters"]) + 1
+                                                         for r in batched])),
+               "sum_n_iters_plus_1_mean": float(np.mean(
+                   [sum(n + 1 for n in r["steps"][0]["n_iters"]) for r in batched])),
+               "k1_launches": sum(r["k1"] for r in rows), "k2_launches": sum(r["k2"] for r in rows)}
+        first = next(c for c in calls if "inputs" in c)
+        out["b_independence"] = check_b_independence(torch, trk, *first["inputs"])
+        log(json.dumps({"multi": out}))
+        if not out["adds_mean_cm"] <= ADDS_BUDGET_CM:
+            fail(f"multi {name}: mean ADD-S {out['adds_mean_cm']:.4f} cm > {ADDS_BUDGET_CM} cm")
+        if switches:
+            fail(f"multi {name}: {switches} identity switches")
+        return out, mt, cam
+
+    parts = {}
+    tmt.track_step_batched = recorded_step
+    knn_mod.fused_nn_batched = _first_call_recorder(
+        torch, nn_inputs, orig_nn, lambda q, qv, d, dv: tuple(q.shape[:2]) + (d.shape[1],))
+    rs.raster_batched = _first_call_recorder(
+        torch, raster_inputs, orig_raster, lambda c, b, H, W: (c.shape[0], H, W, c.shape[1]))
+    try:
+        i320, i640 = Intrinsics.from_fov(60.0, *small), Intrinsics.from_fov(60.0, *full)
+        mk = lambda cad, intr, views, seed: PoseEstimator(  # noqa: E731
+            os.path.join(tmp, cad), os.path.join(tmp, views), intr, target_points=100,
+            seed=seed, device=dev)
+        l320 = mk("mlshape.ply", i320, "mviews320", 0)
+        parts["m1"] = run(f"m1: one CAD, {small[0]}x{small[1]}", i320, MULTI_FRAMES["m1"],
+                          [0, 0, 0], {0: l320})[0]
+        b320 = mk("mbox.ply", i320, "mboxviews320", 1)
+        parts["m2"] = run(f"m2: two classes (0, 1, 0), {small[0]}x{small[1]}", i320,
+                          MULTI_FRAMES["m2"], [0, 1, 0], {0: l320, 1: b320})[0]
+        l640 = mk("mlshape.ply", i640, "mviews640", 0)
+        parts["m3"], mt3, cam3 = run(f"m3: one CAD, {full[0]}x{full[1]}", i640, MULTI_FRAMES["m3"],
+                                     [0, 0, 0], {0: l640})
+        tmt.track_step_batched = orig_step
+        parts["m4"] = batch_sizes_part(torch, dev, fnn, rs, trk, mt3, cam3, l640,
+                                       profile_path)
+    finally:
+        tmt.track_step_batched = orig_step
+        knn_mod.fused_nn_batched, rs.raster_batched = orig_nn, orig_raster
+    return {"parts": parts, "nn_inputs": nn_inputs, "raster_inputs": raster_inputs}
+
+
+def check_b_independence(torch, trk, args, kw, draws, res) -> dict:
+    """Each track of a recorded batched step run again alone through the
+    batched step (B = 1) and through the unbatched ``track_step`` on its
+    own draws: pose, fitness, rmse, covariance and ICP iterations must be
+    bit for bit the batch's."""
+    mesh_v, mesh_f, masks, depth, Ts, intr, dists = args
+    per_track = mesh_v.dim() == 3
+    B = Ts.shape[0]
+    for i in range(B):
+        mv, mf = (mesh_v[i], mesh_f[i]) if per_track else (mesh_v, mesh_f)
+        one = trk.track_step_batched(mesh_v[i:i + 1] if per_track else mesh_v,
+                                     mesh_f[i:i + 1] if per_track else mesh_f, masks[i:i + 1],
+                                     depth, Ts[i:i + 1], intr, dists[i:i + 1], **kw,
+                                     draws=[draws[i]])
+        alone = trk.track_step(mv, mf, masks[i], depth, Ts[i], intr, float(dists[i]),
+                               win_hw=kw["win_hw"], icp_pose_tol=kw["icp_pose_tol"],
+                               target_pts=kw["target_pts"], draws=draws[i])
+        for who, r, k in (("B=1", one, 0), ("unbatched", alone, None)):
+            got = [r.T, r.fitness, r.rmse, r.cov] if k is None else \
+                [r.T[k], r.fitness[k], r.rmse[k], r.cov[k]]
+            same = all(torch.equal(a, b) for a, b in zip(
+                got, (res.T[i], res.fitness[i], res.rmse[i], res.cov[i])))
+            n = r.n_iters if k is None else r.n_iters[k]
+            if not same or n != res.n_iters[i]:
+                fail(f"track {i} of a batch of {B} differs from itself run {who}")
+    return {"B": B, "tracks_bit_equal": B, "n_iters": list(res.n_iters)}
+
+
+def batch_sizes_part(torch, dev, fnn, rs, trk, mt, cam, est, profile_path=None) -> dict:
+    """(m4) The batched step alone on m3's last frame (640x480) at B = 1, 3
+    and 8 (B = 8 repeats the scene's three tracks): the median wall time
+    of a synchronised call over 5 after a warm-up, per frame and per
+    object, the batched K1 and K2 launches of one call, and the B
+    independence of tracks at B = 3 and 8."""
+    from poseestimator_tpu_torch.pipeline.window import merge_windows
+
+    tracks = sorted(mt.tracks, key=lambda t: t.track_id)
+    masks = torch.from_numpy(cam.object_masks).to(dev)
+    # each track's own instance: the one its pose projects nearest to
+    gts = cam.current_gt
+    inst = [int(np.argmin([np.linalg.norm(g[:3, 3] - t.T_m2c[:3, 3]) for g in gts]))
+            for t in tracks]
+    win = merge_windows([t.win for t in tracks])
+    gen = torch.Generator(device=dev).manual_seed(3)
+    out = {"window": win}
+    for B in (1, 3, 8):
+        sel = [i % len(tracks) for i in range(B)]
+        Ts = torch.from_numpy(np.stack([tracks[i].T_m2c for i in sel]).astype(np.float32)).to(dev)
+        m = masks[[inst[i] for i in sel]]
+        dists = torch.full((B,), 0.01, device=dev)
+        draws = [trk.step_draws(est.intr, trk.window_dims(est.intr.scaled(2), win), 0, gen, dev)
+                 for _ in range(B)]
+        kw = dict(win_hw=win, target_pts=0, icp_pose_tol=1e-4)
+
+        def call():
+            return trk.track_step_batched(est._mesh_v, est._mesh_f, m, cam.depth, Ts, est.intr,
+                                          dists, **kw, draws=draws)
+
+        call()
+        times = []
+        for _ in range(5):
+            fnn.fused_nn_batched_stats.launches = 0
+            rs.raster_batched_stats.launches = 0
+            t = time.perf_counter()
+            res = call()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+            k1, k2 = fnn.fused_nn_batched_stats.launches, rs.raster_batched_stats.launches
+        if k2 != 1 or k1 != max(res.n_iters) + 1:
+            fail(f"multi m4 B={B}: {k1} K1 / {k2} K2 launches for n_iters {res.n_iters}")
+        row = {"ms_median": float(np.median(times)), "ms": times,
+               "ms_per_object": float(np.median(times)) / B, "k1_launches": k1,
+               "k2_launches": k2, "n_iters": list(res.n_iters)}
+        if B == 3 and profile_path:
+            row["profile"] = profile_calls(torch, call, 3, profile_path, "step")
+        if B > 1:
+            row["b_independence"] = check_b_independence(
+                torch, trk, (est._mesh_v, est._mesh_f, m, cam.depth, Ts, est.intr, dists), kw,
+                draws, res)
+        out[f"B={B}"] = row
+    log(json.dumps({"multi": {"part": "m4: the batched step alone, 640x480", **out}}))
+    return out
+
+
+def check_batched_shapes(torch, fnn, rs, nn_inputs: dict, raster_inputs: dict) -> dict:
+    """The batched K1 and K2 against their batched plain versions on the
+    inputs the multi-object phase gave them (the first call of each shape),
+    with device times and bounds."""
+    out = {"K1": {}, "K2": {}}
+    for (B, n, m), (q, qv, d, dv) in sorted(nn_inputs.items()):
+        got = fnn.fused_nn_batched(q, qv, d, dv)
+        torch.cuda.synchronize()
+        want = fnn.fused_nn_batched_plain(q, qv, d, dv)
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            fail(f"batched K1 at {B} x {n}x{m}: differs from the batched plain version")
+        ops, nbytes = 9.0 * B * n * m, 13.0 * B * (2 * n + m)
+        b = bound_ms(ops, nbytes)
+        out["K1"][f"B={B} x {n}x{m}"] = {
+            "device_ms": device_ms(torch, lambda: fnn.fused_nn_batched(q, qv, d, dv)),
+            "call_ms": call_ms(torch, lambda: fnn.fused_nn_batched(q, qv, d, dv)),
+            "plain_ms": call_ms(torch, lambda: fnn.fused_nn_batched_plain(q, qv, d, dv), reps=5),
+            "library_ms": device_ms(torch, lambda: torch.cdist(q, d).min(2)),
+            "bound_ms": b[0], "bound_by": b[1], "issue_ms": nn_issue_ms(B * n, m)}
+    for (B, H, W, F), (coef, bbox, _, _) in sorted(raster_inputs.items()):
+        izk = rs.raster_batched(coef, bbox, H, W)
+        torch.cuda.synchronize()
+        if not torch.equal(izk, rs.raster_batched_plain(coef, H, W, chunk=64)):
+            fail(f"batched K2 at {B} x {H}x{W}: differs from the batched plain version")
+        b = bound_ms(sum(20.0 * raster_pairs(bbox[i], H, W) for i in range(B)),
+                     B * (64.0 * F + 4.0 * H * W))
+        out["K2"][f"B={B} x {H}x{W}, {F} faces"] = {
+            "device_ms": device_ms(torch, lambda: rs.raster_batched(coef, bbox, H, W)),
+            "call_ms": call_ms(torch, lambda: rs.raster_batched(coef, bbox, H, W)),
+            "plain_ms": call_ms(torch, lambda: rs.raster_batched_plain(coef, H, W, chunk=64),
+                                reps=5),
+            "bound_ms": b[0], "bound_by": b[1]}
+    for k in ("K1", "K2"):
+        for shape, t in out[k].items():
+            log(f"batched {k} at {shape}: identical to the batched plain version; device "
+                f"{t['device_ms']:.5f} ms, call {t['call_ms']:.4f} ms, plain "
+                f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.3g} ms ({t['bound_by']})"
+                + (f", library {t['library_ms']:.5f} ms" if "library_ms" in t else ""))
+    return out
 
 
 def adds_cm(torch, pts, T_est, T_true) -> float:
@@ -757,7 +1204,8 @@ def main(argv=None) -> int:
     p.add_argument("--out", help="also write the JSON summary to this file")
     p.add_argument("--profile", metavar="FILE.txt",
                    help="also trace 5 frames with torch.profiler and write the kernel table "
-                   "to this file, and 2 searches to FILE_search.txt")
+                   "to this file, 2 searches to FILE_search.txt and 3 batched multi-object "
+                   "steps (B = 3) to FILE_multi.txt")
     args = p.parse_args(argv)
 
     try:
@@ -893,10 +1341,16 @@ def main(argv=None) -> int:
             "{0}_search{1}".format(*os.path.splitext(args.profile)) if args.profile else None))
         # 7. the tracker, then the kernels at its new shapes
         tracker = tracker_phase(torch, dev, kc, fnn, rs, tmp)
+        icp_options = icp_options_phase(torch, dev, kc, fnn, rs, track_step)
+        # 8. multi-object tracking, then the batched kernels at its shapes
+        multi = multi_phase(torch, dev, kc, fnn, rs, tmp, profile_path=(
+            "{0}_multi{1}".format(*os.path.splitext(args.profile)) if args.profile else None))
     search_k = check_search_shapes(torch, fnn, rs, search.pop("nn_inputs"),
                                    search.pop("raster_inputs"))
     tracker_k = check_search_shapes(torch, fnn, rs, tracker.pop("nn_inputs"),
                                     tracker.pop("raster_inputs"), where="the tracker's")
+    multi_k = check_batched_shapes(torch, fnn, rs, multi.pop("nn_inputs"),
+                                   multi.pop("raster_inputs"))
 
     if args.profile:
         # the first 5 frames of the sequence again from the start pose
@@ -918,7 +1372,8 @@ def main(argv=None) -> int:
         "icp_n_iters_mean": float(np.mean(n_iters)), "icp_n_iters": n_iters,
         "adds_mean_cm": adds_mean, "adds_max_cm": float(max(adds)),
         "k1_launches": k1_launches, "k2_launches": k2_launches,
-        "search": search, "tracker": tracker["parts"],
+        "search": search, "tracker": tracker["parts"], "icp_options": icp_options,
+        "multi": multi["parts"],
     }
     log(f"track step alone: {track_ms:.3f} ms; one host read: {read_us:.1f} us")
     k2_main = k2["shapes"][k2["main"]]
@@ -957,6 +1412,25 @@ def main(argv=None) -> int:
              "k2_launches", "k2_per_tracked_frame", "k2_per_init")}
              for p in tracker["parts"].values()}},
     ]}
+    mparts = [multi["parts"][k] for k in ("m1", "m2", "m3")]
+    for name, key, source, replaces, shapes in (
+            ("K1 fused_nn batched", "k1_launches", "poseestimator_tpu_torch/csrc/fused_nn.cu",
+             "poseestimator_tpu/geom3d/pallas_nn.py:30", multi_k["K1"]),
+            ("K2 raster batched", "k2_launches", "poseestimator_tpu_torch/csrc/raster.cu",
+             "poseestimator_tpu/render/raster.py:134", multi_k["K2"])):
+        # the main shape: the largest batch of the 640x480 part
+        main = max(shapes, key=lambda k: int(k.split(" ")[0][2:]))
+        t = shapes[main]
+        kernels_line["kernels"].append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": sum(p[key] for p in mparts), "max_abs_err": 0.0, "ms": t["call_ms"],
+            "device_ms": t["device_ms"], "call_ms": t["call_ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t.get("library_ms"), "shape": main,
+            "other_shapes": {k: v for k, v in shapes.items() if k != main},
+            "multi_launches": {p["part"]: {k: p[k] for k in (
+                key, "k1_per_tracked_frame" if key == "k1_launches" else "k2_per_tracked_frame")}
+                for p in mparts}})
     summary["kernels"] = kernels_line["kernels"]
     if args.profile:
         summary["profile"] = summary_prof
@@ -965,7 +1439,7 @@ def main(argv=None) -> int:
             json.dump(summary, f, indent=1)
     log(f"card: {card}")
     log(json.dumps({k: v for k, v in summary.items() if k not in (
-        "frame_ms", "icp_n_iters", "kernels", "search", "tracker")}))
+        "frame_ms", "icp_n_iters", "kernels", "search", "tracker", "multi", "icp_options")}))
     log(json.dumps({"search": search}))
     log(json.dumps(kernels_line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

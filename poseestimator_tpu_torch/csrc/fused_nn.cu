@@ -56,6 +56,16 @@
 //   tie and a negative d2 (the expanded form cancels below zero for
 //   near-coincident points 0.5 m out) orders as a float: no integer key, no
 //   atomics, no scratch and no second launch.
+// * Batch axis (fused_nn_batched_launch: B problems of N queries against M
+//   data points each, what the JAX package's vmap of nn_pallas computes in
+//   one launch): problem b is blockIdx.y, and every pointer is offset to its
+//   rows before anything else; the x axis and the cluster stay as above. So
+//   a problem's arithmetic, and its any(data_valid), are those of an
+//   unbatched launch on it. The result is the lexicographic minimum of
+//   (d2, index) over the valid points, whatever the split, so padding a
+//   problem with invalid points changes no bit; the wrapper pads M to a
+//   multiple of 4 so that every problem's data keep the 16-byte alignment of
+//   the staging loads.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -138,6 +148,16 @@ fused_nn_kernel(const float* __restrict__ q, const uint8_t* __restrict__ qv, int
                 float* __restrict__ out_dist, long long* __restrict__ out_idx,
                 uint8_t* __restrict__ out_found) {
     constexpr int kPer = NN_QB / NN_CLUSTER;  // queries each block finishes
+    {  // this block's problem of the batch
+        const size_t b = blockIdx.y;
+        q += b * N * 3;
+        qv += b * N;
+        d += b * M * 3;
+        dv += b * M;
+        out_dist += b * N;
+        out_idx += b * N;
+        out_found += b * N;
+    }
     __shared__ float4 tile[NN_TILE];
     __shared__ float cand_d[NN_WARPS][NN_QB];
     __shared__ int cand_i[NN_WARPS][NN_QB];
@@ -299,16 +319,24 @@ fused_nn_kernel(const float* __restrict__ q, const uint8_t* __restrict__ qv, int
     }
 }
 
-extern "C" int fused_nn_launch(const void* q, const void* qv, int N,
-                               const void* d, const void* dv, int M,
-                               void* out_dist, void* out_idx, void* out_found,
-                               void* stream) {
-    if (N > 0 && M > 0) {
-        const dim3 grid((N + NN_QB - 1) / NN_QB * NN_CLUSTER);
+extern "C" int fused_nn_batched_launch(const void* q, const void* qv, int N,
+                                       const void* d, const void* dv, int M, int B,
+                                       void* out_dist, void* out_idx, void* out_found,
+                                       void* stream) {
+    if (N > 0 && M > 0 && B > 0) {
+        const dim3 grid((N + NN_QB - 1) / NN_QB * NN_CLUSTER, B);
         fused_nn_kernel<<<grid, NN_THREADS, 0, (cudaStream_t)stream>>>(
             (const float*)q, (const uint8_t*)qv, N, (const float*)d,
             (const uint8_t*)dv, M, (float*)out_dist, (long long*)out_idx,
             (uint8_t*)out_found);
     }
     return (int)cudaGetLastError();
+}
+
+extern "C" int fused_nn_launch(const void* q, const void* qv, int N,
+                               const void* d, const void* dv, int M,
+                               void* out_dist, void* out_idx, void* out_found,
+                               void* stream) {
+    return fused_nn_batched_launch(q, qv, N, d, dv, M, 1, out_dist, out_idx, out_found,
+                                   stream);
 }

@@ -38,6 +38,13 @@
 // shared edges away from the plain PyTorch version, and coverage is held
 // bit-identical to it. The max is exact in any order, so neither the cull
 // nor the compaction can change a bit.
+//
+// Batch axis (raster_batched_launch: B problems of F faces over H x W each,
+// what the JAX package's vmap of _render_pallas computes in one launch):
+// problem b is blockIdx.z, and its coef, bbox and out rows are reached by
+// offsetting the pointers before anything else, so each problem runs the
+// arithmetic of an unbatched launch on its rows (F * 48 and F * 16 bytes
+// keep every problem's rows 16-byte aligned).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -69,6 +76,12 @@ raster_kernel(const float* __restrict__ coef, const float* __restrict__ bbox, in
               int H, int W, float* __restrict__ out) {
     __shared__ __align__(16) float4 sbox[RS_STAGES][RS_FPL][32];
     __shared__ __align__(16) float4 hits[32][3];
+    {  // this block's problem of the batch
+        const size_t b = blockIdx.z;
+        coef += b * F * 12;
+        bbox += b * F * 4;
+        out += b * H * W;
+    }
     const int lane = threadIdx.x;
     const int x0 = blockIdx.x * RS_T, y0 = blockIdx.y * RS_T;
     const int px = x0 + 2 * (lane % (RS_T / 2)), py = y0 + lane / (RS_T / 2);
@@ -140,12 +153,17 @@ raster_kernel(const float* __restrict__ coef, const float* __restrict__ bbox, in
     }
 }
 
-extern "C" int raster_launch(const void* coef, const void* bbox, int F, int H, int W,
-                             void* out, void* stream) {
-    if (H > 0 && W > 0) {
-        const dim3 grid((W + RS_T - 1) / RS_T, (H + RS_T - 1) / RS_T);
+extern "C" int raster_batched_launch(const void* coef, const void* bbox, int F, int B,
+                                     int H, int W, void* out, void* stream) {
+    if (H > 0 && W > 0 && B > 0) {
+        const dim3 grid((W + RS_T - 1) / RS_T, (H + RS_T - 1) / RS_T, B);
         raster_kernel<<<grid, 32, 0, (cudaStream_t)stream>>>(
             (const float*)coef, (const float*)bbox, F, H, W, (float*)out);
     }
     return (int)cudaGetLastError();
+}
+
+extern "C" int raster_launch(const void* coef, const void* bbox, int F, int H, int W,
+                             void* out, void* stream) {
+    return raster_batched_launch(coef, bbox, F, 1, H, W, out, stream);
 }

@@ -3,16 +3,18 @@
 
 ``nearest_neighbor`` goes through kernel K1 on every CUDA call (the JAX
 package's 8M-entry size gate is dropped: no plain path runs on the card) and
-through K1's plain version on the CPU. ``knn`` (k > 1: the outlier filter,
-normals and FPFH neighbourhoods) stays a dense distance matrix and a top-k,
-as in the JAX package; above 64M matrix entries it runs in blocks of
-query rows, which bounds its memory and changes no result.
+through K1's plain version on the CPU; ``nearest_neighbor_batched`` does
+the same for B problems, each with its own data cloud, in one launch.
+``knn`` (k > 1: the outlier filter, normals and FPFH neighbourhoods) stays a
+dense distance matrix and a top-k, as in the JAX package; above 64M matrix
+entries it runs in blocks of query rows, which bounds its memory and
+changes no result.
 """
 from __future__ import annotations
 
 import torch
 
-from .fused_nn import fused_nn
+from .fused_nn import fused_nn, fused_nn_batched
 
 BIG = 3.0e38
 BLOCK_ENTRIES = 64 * 1024 * 1024  # distance-matrix entries per knn block
@@ -75,3 +77,9 @@ def radius_knn(query, query_valid, data, data_valid, radius: float, max_nn: int,
 def nearest_neighbor(query, query_valid, data, data_valid):
     """Single nearest valid data point per query: ``(dist, idx, found)``."""
     return fused_nn(query, query_valid, data, data_valid)
+
+
+def nearest_neighbor_batched(query, query_valid, data, data_valid):
+    """``nearest_neighbor`` of B problems: (B, N, 3) queries against their
+    own (B, M, 3) data -> ``(dist, idx, found)``, each (B, N)."""
+    return fused_nn_batched(query, query_valid, data, data_valid)

@@ -130,14 +130,35 @@ def voxel_down_sample(cloud: PointCloud, voxel_size: float,
         uniq = torch.cat([uniq, uniq.new_full((n_seg - uniq.shape[0], 3), SENTINEL)])
     uniq = uniq[:n_seg]
     hit = inv < n_seg  # the point's voxel survived the capacity cut
-    w = (valid & hit).to(torch.float32)
+    w = valid & hit
     seg = torch.where(hit, inv, torch.zeros_like(inv))
-    counts = torch.zeros(n_seg, dtype=torch.float32, device=pts.device).index_add_(0, seg, w)
-    sums = torch.zeros((n_seg, 3), dtype=torch.float32, device=pts.device).index_add_(
-        0, seg, pts * w[:, None])
+    counts = segment_sum(w.to(torch.float32)[:, None], seg, n_seg)[:, 0]
+    sums = segment_sum(pts * w[:, None].to(torch.float32), seg, n_seg)
     means = sums / torch.clamp(counts, min=1.0)[:, None]
     voxel_ok = (counts > 0) & (uniq != SENTINEL).any(1)
     return compact(PointCloud(points=means[:cap], valid=voxel_ok[:cap]), cap)
+
+
+def segment_sum(values: torch.Tensor, seg: torch.Tensor, n_seg: int) -> torch.Tensor:
+    """Row sums of ``values`` (N, C) by segment id ``seg`` (N,) -> (n_seg, C),
+    in an order fixed by the data alone: the rows are stably sorted by
+    segment, then each segment is summed by a segmented inclusive scan of
+    log2(N) elementwise doubling steps, and read at its last row. No
+    atomics, so runs on the card agree bit for bit (a float ``index_add_``
+    adds in whatever order its atomics land)."""
+    order = torch.argsort(seg, stable=True)
+    s, x = seg[order], values[order]
+    n = s.shape[0]
+    step = 1
+    while step < n:
+        same = (s[step:] == s[:-step])[:, None]
+        x = torch.cat([x[:step], torch.where(same, x[step:] + x[:-step], x[step:])])
+        step *= 2
+    last = torch.ones_like(s, dtype=torch.bool)
+    last[:-1] = s[1:] != s[:-1]
+    out = values.new_zeros((n_seg, values.shape[1]))
+    out[s[last]] = x[last]  # one row per segment: no two writes collide
+    return out
 
 
 def voxel_coverage(points: torch.Tensor, valid: torch.Tensor, voxel_size) -> torch.Tensor:

@@ -259,3 +259,105 @@ def raster_cases(seed: int = 2) -> dict[str, dict]:
     out["L-shape 24 faces (256 padded), 480x640 frame"] = dict(
         vertices=lv, faces=pad_faces(lf, 256), T=T.astype(np.float32), intr=intr, H=480, W=640)
     return out
+
+
+def _pad_rows(a: np.ndarray, n: int) -> np.ndarray:
+    """``a`` with rows of zeros (False) appended up to ``n``."""
+    return np.concatenate([a, np.zeros((n - len(a),) + a.shape[1:], a.dtype)])
+
+
+def stack_nn_problems(problems: list) -> NNCase:
+    """K1 problems of any sizes as one batch: each padded with invalid
+    points (zeros) to the common N and M."""
+    n = max(len(p[0]) for p in problems)
+    m = max(len(p[2]) for p in problems)
+    return tuple(np.stack([_pad_rows(p[k], n if k < 2 else m) for p in problems])
+                 for k in range(4))
+
+
+def nn_batched_cases(seed: int = 3) -> dict[str, tuple[NNCase, list]]:
+    """Batched K1 cases by name, as ``(batch, sizes)``: the batch (B, N, 3) /
+    (B, N) / (B, M, 3) / (B, M) and each problem's own ``(n, m)``.
+
+    * a ragged batch: 129 x 4097, 37 x 5, 1 x 1 and a problem whose data
+      are all invalid, padded to 500 x 4097 (each problem's found flags
+      must follow its own data's validity);
+    * three 4096 x 4096 problems with their own clouds, the dense
+      multi-object step's shape;
+    * three 300 x 300 problems, the sparse step's.
+    """
+    rng = np.random.default_rng(seed)
+    base = nn_cases(seed)
+    mask = lambda n, p: rng.uniform(size=n) < p  # noqa: E731
+    ragged = [base["129x4097"], base["37x5 (M below the slice count)"], base["1x1"],
+              base["all data invalid"]]
+    dense = [(_cloud(rng, 4096), mask(4096, 0.9), _cloud(rng, 4096), mask(4096, 0.9))
+             for _ in range(3)]
+    sparse = [(_cloud(rng, 300), mask(300, 0.95), _cloud(rng, 300), mask(300, 0.95))
+              for _ in range(3)]
+    return {name: (stack_nn_problems(ps), [(len(p[0]), len(p[2])) for p in ps])
+            for name, ps in (("ragged with an all-invalid problem", ragged),
+                             ("3 x 4096x4096", dense), ("3 x 300x300", sparse))}
+
+
+def multi_object_poses(n_obj: int, diag: float, angle: float) -> np.ndarray:
+    """(n_obj, 4, 4) poses of the multi-object scene of the JAX package's
+    tracking evaluation (``_run_multi_mode``) at turn ``angle``: instance i
+    seen from ``diag * (2.3 + 0.12 i)`` along (1, 1, 1) (up +Y), turned
+    ``0.1 + 1.1 i + angle`` about the camera's z and shifted
+    ``(i - (n_obj - 1) / 2) * 0.65 diag`` along its x."""
+    eye_dir = np.ones(3) / np.sqrt(3.0)
+    out = []
+    for i in range(n_obj):
+        base = GL_TO_CV @ look_at(eye_dir * diag * (2.3 + 0.12 * i), np.zeros(3),
+                                  [0.0, 1.0, 0.0]).numpy()
+        a = 0.1 + 1.1 * i + angle
+        P = np.eye(4)
+        P[:2, :2] = [[np.cos(a), -np.sin(a)], [np.sin(a), np.cos(a)]]
+        T = (P @ base).astype(np.float32)
+        T[0, 3] += (i - (n_obj - 1) / 2) * 0.65 * diag
+        out.append(T)
+    return np.stack(out)
+
+
+def raster_batched_cases() -> dict[str, dict]:
+    """Batched K2 cases by name, as ``dict(vertices, faces, T, origin, intr,
+    H, W)`` for the batched ``face_coeffs(vertices, faces, T, intr,
+    near=0.01, origin=origin)``: per-problem poses (B, 4, 4) and window
+    origins (B, 2) at the 320 x 240 half-resolution view of the tracking
+    camera, on
+
+    * a mixed-class stack, classes (0, 1, 0): the L-shape (16 vertices, 24
+      faces) and a 0.5 x 0.3 x 0.2 box (8 vertices, 12 faces, padded with
+      degenerate faces), the rows gathered per problem;
+    * eight poses of the L-shape padded to 256 faces, the largest batch of
+      the multi-object step.
+    """
+    intr = Intrinsics.from_fov(60.0, 640, 480).scaled(2)
+    lv, lf = lshape_mesh()
+    diag = float(np.linalg.norm(lv.max(0) - lv.min(0)))
+
+    def poses(n):
+        return multi_object_poses(n, diag, 0.0)
+
+    def origins(Ts, h, w):  # each window around its object, as the track step places it
+        import torch
+
+        from .pipeline.window import window_origin
+
+        return np.stack([window_origin(torch.from_numpy(lv), torch.from_numpy(T), intr, h,
+                                       w).numpy() for T in Ts])
+
+    from .pipeline.multi_tracking import stack_class_meshes
+
+    vs, fs = stack_class_meshes([(lv, pad_faces(lf, 256)), box_mesh((0.5, 0.3, 0.2))])
+    rows = np.array([0, 1, 0])
+    lfp = pad_faces(lf, 256).astype(np.int64)
+    return {
+        "mixed-class stack (0, 1, 0), 128x256 window": dict(
+            vertices=vs[rows], faces=fs[rows], T=poses(3), origin=origins(poses(3), 128, 256),
+            intr=intr, H=128, W=256),
+        "8 x L-shape, 192x256 window": dict(
+            vertices=lv, faces=lfp, T=poses(8), origin=origins(poses(8), 192, 256), intr=intr,
+            H=192, W=256),
+    }

@@ -31,12 +31,16 @@ NVCC_FLAGS = [
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
 ]
 
-# C signature of each library's launch entry: (name, argtypes)
+# the sources of csrc/, one library each
+SOURCES = ("fused_nn", "raster")
+# C signature of each launch entry: name -> (source, argtypes)
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 SIGNATURES = {
-    "fused_nn": ("fused_nn_launch", [_P, _P, _I, _P, _P, _I, _P, _P, _P, _P]),
-    "raster": ("raster_launch", [_P, _P, _I, _I, _I, _P, _P]),
+    "fused_nn_launch": ("fused_nn", [_P, _P, _I, _P, _P, _I, _P, _P, _P, _P]),
+    "fused_nn_batched_launch": ("fused_nn", [_P, _P, _I, _P, _P, _I, _I, _P, _P, _P, _P]),
+    "raster_launch": ("raster", [_P, _P, _I, _I, _I, _P, _P]),
+    "raster_batched_launch": ("raster", [_P, _P, _I, _I, _I, _I, _P, _P]),
 }
 
 _entries: dict[str, ctypes._CFuncPtr] = {}
@@ -71,7 +75,7 @@ def _target(name: str) -> Path:
 def build_all(names=None) -> dict[str, float]:
     """Compile every missing library, one ``nvcc`` per source, all started
     together. Returns {name: seconds} for the ones built now."""
-    names = list(SIGNATURES) if names is None else list(names)
+    names = list(SOURCES) if names is None else list(names)
     todo = [(n, _target(n)) for n in names if not _target(n).exists()]
     if not todo:
         return {}
@@ -98,12 +102,13 @@ def build_all(names=None) -> dict[str, float]:
 
 
 def entry(name: str) -> ctypes._CFuncPtr:
-    """The launch entry of ``csrc/<name>.cu``, built on first use."""
+    """The C launch entry ``name`` of its ``csrc/`` library, built on first
+    use."""
     fn = _entries.get(name)
     if fn is None:
         build_all()
-        fn_name, argtypes = SIGNATURES[name]
-        fn = getattr(ctypes.CDLL(str(_target(name))), fn_name)
+        source, argtypes = SIGNATURES[name]
+        fn = getattr(ctypes.CDLL(str(_target(source))), name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         _entries[name] = fn
@@ -111,10 +116,10 @@ def entry(name: str) -> ctypes._CFuncPtr:
 
 
 def launch(name: str, *args) -> None:
-    """Call the launch entry of ``name`` and raise on a CUDA error code."""
+    """Call the launch entry ``name`` and raise on a CUDA error code."""
     code = entry(name)(*args)
     if code != 0:
-        raise RuntimeError(f"{SIGNATURES[name][0]} failed with cudaError {code}")
+        raise RuntimeError(f"{name} failed with cudaError {code}")
 
 
 def aligned16(t):

@@ -7,7 +7,12 @@ resolution (kernel K2), back-projects the predicted and the observed depth,
 samples both to 4096 points, removes statistical outliers from the
 observation, optionally samples both down to ``target_pts``, and runs ICP
 (kernel K1 on every evaluation): point-to-point, accelerated in a window,
-or point-to-plane on observed normals. ``FusedFrame`` puts detection in
+or point-to-plane on observed normals. ``track_step_batched`` advances B
+tracks on one frame (the multi-object step and the init rollout) with one
+K2 launch and one K1 launch per ICP evaluation for all of them; each track
+runs the unbatched step's code (``track_program``, a program of
+``chains``), so its result is bit for bit the unbatched step's, whatever
+B is. ``FusedFrame`` puts detection in
 front of it: letterbox, YOLO11-seg, DFL decode, NMS, one proto mask, then
 ``track_step``, and keeps the old pose when nothing was detected. Shapes are
 static; the ICP and NMS loops read one flag back per iteration.
@@ -17,7 +22,8 @@ detection, the global template search of ``PoseEstimator`` with the upright
 snap, then one tracked frame per step (through ``FusedFrame`` when the
 detector carries its model, else detection and ``track_step`` as two
 calls), LOST on detection misses, re-initialisation, the ranked-candidate
-fallback, the low-fitness re-init and the multi-frame init rollout. The
+fallback, the low-fitness re-init and the multi-frame init rollout (on
+the batched step). The
 pose filter and the constant-velocity predictor are host numpy, as in the
 JAX package.
 """
@@ -30,19 +36,19 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import chains
 from ..device import resolve_device
 from ..geom3d.camera import Intrinsics, backproject_depth
 from ..geom3d.normals import estimate_normals
 from ..geom3d.outliers import remove_statistical_outlier
-from ..geom3d.sampling import random_sample
+from ..geom3d.sampling import make_draws, random_sample
 from ..geom3d.se3 import enforce_upright_pose_y_up
 from ..models.yolo.decode import decode_boxes
 from ..models.yolo.masks import assemble_masks
 from ..models.yolo.model import YOLO11Seg
 from ..models.yolo.nms import nms
 from ..models.yolo.preprocess import letterbox
-from ..registration.icp import icp_point_to_plane, icp_point_to_point
-from ..render.raster import render_depth_mesh
+from ..registration.icp import icp_point_to_plane, icp_point_to_point_program
 from .window import window_dims, window_for_object, window_gather, window_origin
 
 SAMPLE_PTS = 4096  # points per cloud after sampling
@@ -168,6 +174,79 @@ class TrackResult:
     n_iters: int  # ICP loop bodies run (K1 launches = n_iters + 1)
 
 
+def step_draws(intr: Intrinsics, win, target_pts: int, generator, device,
+               draws: Optional[dict] = None) -> dict:
+    """The samplers' random numbers of one track step, ``draws`` completed
+    from ``generator`` in the order the step samples: ``"tpl"`` (the
+    rendered cloud), ``"obs"`` (the observed cloud), then with
+    ``target_pts`` ``"tpl_target"`` and ``"obs_target"``."""
+    r = RENDER_DOWNSCALE
+    intr_r = intr.scaled(r)
+    if win is None:
+        cap_tpl, cap_obs = intr_r.height * intr_r.width, intr.height * intr.width
+    else:
+        cap_tpl, cap_obs = win[0] * win[1], win[0] * r * win[1] * r
+    n_tpl, n_obs = min(SAMPLE_PTS, cap_tpl), min(SAMPLE_PTS, cap_obs)
+    plan = [("tpl", cap_tpl, SAMPLE_PTS), ("obs", cap_obs, SAMPLE_PTS)]
+    if target_pts:
+        plan += [("tpl_target", n_tpl, target_pts), ("obs_target", n_obs, target_pts)]
+    out = dict(draws or {})
+    for name, cap, n in plan:
+        if name not in out:
+            out[name] = make_draws(cap, min(n, cap), generator, device)
+    return out
+
+
+def track_program(mesh_v: torch.Tensor, mesh_f: torch.Tensor, mask: torch.Tensor,
+                  depth: torch.Tensor, T_m2c: torch.Tensor, intr: Intrinsics, icp_dist, win,
+                  icp_pose_tol, target_pts: int, icp_variant: str, icp_kernel: str,
+                  draws: dict):
+    """``track_step`` as a program of ``chains`` (it yields a ``Render``,
+    then the ICP's requests) for a resolved window ``win`` and complete
+    ``draws``; returns the ``TrackResult``."""
+    r = RENDER_DOWNSCALE
+    intr_r = intr.scaled(r)
+    if win is not None:
+        wh, ww = win
+        orig_r = window_origin(mesh_v, T_m2c, intr_r, wh, ww)
+        dtpl = yield chains.Render(mesh_v, mesh_f, T_m2c, intr_r, 0.01, 5.0,
+                                   orig_r.to(torch.float32), win)
+        tpl = backproject_depth(dtpl, intr_r, depth_min=0.01, depth_max=5.0,
+                                origin=orig_r)
+    else:
+        dtpl = yield chains.Render(mesh_v, mesh_f, T_m2c, intr_r, 0.01, 5.0, None, None)
+        tpl = backproject_depth(dtpl, intr_r, depth_min=0.01, depth_max=5.0)
+    prev_down = random_sample(tpl, SAMPLE_PTS, draws=draws["tpl"])
+
+    if win is not None:
+        orig_f = orig_r.to(torch.int64) * r
+        dwin = window_gather(depth, orig_f[1], orig_f[0], wh * r, ww * r)
+        mwin = window_gather(mask, orig_f[1], orig_f[0], wh * r, ww * r)
+        obs = backproject_depth(dwin, intr, mask=mwin, depth_min=1e-6, origin=orig_f)
+    else:
+        obs = backproject_depth(depth, intr, mask=mask, depth_min=1e-6)
+    obs = random_sample(obs, SAMPLE_PTS, draws=draws["obs"])
+    dst_down = remove_statistical_outlier(obs, 20, 1.0)
+
+    if target_pts:
+        prev_down = random_sample(prev_down, target_pts, draws=draws["tpl_target"])
+        dst_down = random_sample(dst_down, target_pts, draws=draws["obs_target"])
+
+    if icp_variant == "p2l":
+        dst_down = estimate_normals(dst_down, radius=0.025, max_nn=16,
+                                    orient_towards=(0.0, 0.0, 0.0))
+        icp = icp_point_to_plane(prev_down, dst_down, max_corr_dist=icp_dist,
+                                 max_iterations=30, robust=icp_kernel, with_cov=True)
+    else:
+        # product resolutions (windowed) run Besl-McKay accelerated ICP;
+        # tiny full-frame cameras keep the exact Open3D-parity sequence
+        icp = yield from icp_point_to_point_program(
+            prev_down, dst_down, max_corr_dist=icp_dist, max_iterations=30, robust=icp_kernel,
+            with_cov=True, accel=win is not None, accel_pose_tol=icp_pose_tol)
+    return TrackResult(T=icp.T @ T_m2c, fitness=icp.fitness, rmse=icp.inlier_rmse,
+                       cov=icp.cov, n_iters=icp.n_iters)
+
+
 def track_step(mesh_v: torch.Tensor, mesh_f: torch.Tensor, mask: torch.Tensor,
                depth: torch.Tensor, T_m2c: torch.Tensor, intr: Intrinsics,
                icp_dist=0.01, win_hw="auto", icp_pose_tol=5e-5, target_pts: int = 0,
@@ -188,49 +267,58 @@ def track_step(mesh_v: torch.Tensor, mesh_f: torch.Tensor, mask: torch.Tensor,
     """
     if icp_variant not in ("p2p", "p2l"):
         raise ValueError(f"unknown icp_variant {icp_variant!r}")
-    draws = draws or {}
-    r = RENDER_DOWNSCALE
-    intr_r = intr.scaled(r)
-    win = window_dims(intr_r, win_hw)
-    if win is not None:
-        wh, ww = win
-        orig_r = window_origin(mesh_v, T_m2c, intr_r, wh, ww)
-        dtpl = render_depth_mesh(mesh_v, mesh_f, T_m2c, intr_r, near=0.01, far=5.0,
-                                 origin=orig_r.to(torch.float32), out_hw=win)
-        tpl = backproject_depth(dtpl, intr_r, depth_min=0.01, depth_max=5.0,
-                                origin=orig_r)
-    else:
-        dtpl = render_depth_mesh(mesh_v, mesh_f, T_m2c, intr_r, near=0.01, far=5.0)
-        tpl = backproject_depth(dtpl, intr_r, depth_min=0.01, depth_max=5.0)
-    prev_down = random_sample(tpl, SAMPLE_PTS, generator, draws.get("tpl"))
+    win = window_dims(intr.scaled(RENDER_DOWNSCALE), win_hw)
+    draws = step_draws(intr, win, target_pts, generator, depth.device, draws)
+    return chains.run(track_program(mesh_v, mesh_f, mask, depth, T_m2c, intr, icp_dist, win,
+                                    icp_pose_tol, target_pts, icp_variant, icp_kernel, draws))
 
-    if win is not None:
-        orig_f = orig_r.to(torch.int64) * r
-        dwin = window_gather(depth, orig_f[1], orig_f[0], wh * r, ww * r)
-        mwin = window_gather(mask, orig_f[1], orig_f[0], wh * r, ww * r)
-        obs = backproject_depth(dwin, intr, mask=mwin, depth_min=1e-6, origin=orig_f)
-    else:
-        obs = backproject_depth(depth, intr, mask=mask, depth_min=1e-6)
-    obs = random_sample(obs, SAMPLE_PTS, generator, draws.get("obs"))
-    dst_down = remove_statistical_outlier(obs, 20, 1.0)
 
-    if target_pts:
-        prev_down = random_sample(prev_down, target_pts, generator, draws.get("tpl_target"))
-        dst_down = random_sample(dst_down, target_pts, generator, draws.get("obs_target"))
+@dataclass
+class BatchedTrackResult:
+    T: torch.Tensor  # (B, 4, 4) updated poses
+    fitness: torch.Tensor  # (B,)
+    rmse: torch.Tensor  # (B,)
+    cov: torch.Tensor  # (B, 6, 6)
+    n_iters: list  # ICP loop bodies per track (K1 launches: max + 1)
 
-    if icp_variant == "p2l":
-        dst_down = estimate_normals(dst_down, radius=0.025, max_nn=16,
-                                    orient_towards=(0.0, 0.0, 0.0))
-        icp = icp_point_to_plane(prev_down, dst_down, max_corr_dist=icp_dist,
-                                 max_iterations=30, robust=icp_kernel, with_cov=True)
-    else:
-        # product resolutions (windowed) run Besl-McKay accelerated ICP;
-        # tiny full-frame cameras keep the exact Open3D-parity sequence
-        icp = icp_point_to_point(prev_down, dst_down, max_corr_dist=icp_dist,
-                                 max_iterations=30, robust=icp_kernel, with_cov=True,
-                                 accel=win is not None, accel_pose_tol=icp_pose_tol)
-    return TrackResult(T=icp.T @ T_m2c, fitness=icp.fitness, rmse=icp.inlier_rmse,
-                       cov=icp.cov, n_iters=icp.n_iters)
+
+def track_step_batched(mesh_v: torch.Tensor, mesh_f: torch.Tensor, masks: torch.Tensor,
+                       depth: torch.Tensor, Ts: torch.Tensor, intr: Intrinsics, icp_dists,
+                       win_hw="auto", target_pts: int = 0, icp_pose_tol=1e-4,
+                       generator: Optional[torch.Generator] = None,
+                       draws: Optional[list] = None) -> BatchedTrackResult:
+    """``track_step`` (point-to-point) of B tracks on one frame: the
+    counterpart of the JAX package's ``_batched_track`` and
+    ``_batched_track_multi``. One K2 launch renders every track, and each
+    ICP evaluation is one K1 launch for the whole batch; the loop runs
+    until every track has exited, each keeping its own ``n_iters``.
+
+    ``mesh_v`` / ``mesh_f``: one mesh (V, 3) / (F, 3), or one per track
+    (B, V, 3) / (B, F, 3) (rows of a padded class stack). ``masks``: (B, H,
+    W), or one (H, W) mask for every track (the init rollout). ``Ts`` (B,
+    4, 4); ``icp_dists``: the ICP radius per track, (B,) or a scalar;
+    ``win_hw``: one window for the batch (``window.merge_windows``);
+    ``draws``: a list of per-track ``track_step`` draws, completed from
+    ``generator`` track by track. Track i's result is bit for bit that of
+    ``track_step`` on its inputs, whatever B is (see ``chains``).
+    """
+    B = Ts.shape[0]
+    dev = depth.device
+    win = window_dims(intr.scaled(RENDER_DOWNSCALE), win_hw)
+    dists = torch.as_tensor(icp_dists, dtype=torch.float32, device=dev).expand(B)
+    draws = draws or [None] * B
+    draws = [step_draws(intr, win, target_pts, generator, dev, d) for d in draws]
+    per_track = mesh_v.dim() == 3
+    out = chains.run_batched([
+        track_program(mesh_v[i] if per_track else mesh_v, mesh_f[i] if per_track else mesh_f,
+                      masks[i] if masks.dim() == 3 else masks, depth, Ts[i], intr, dists[i],
+                      win, icp_pose_tol, target_pts, "p2p", "none", draws[i])
+        for i in range(B)])
+    return BatchedTrackResult(T=torch.stack([r.T for r in out]),
+                              fitness=torch.stack([r.fitness for r in out]),
+                              rmse=torch.stack([r.rmse for r in out]),
+                              cov=torch.stack([r.cov for r in out]),
+                              n_iters=[r.n_iters for r in out])
 
 
 @dataclass
@@ -565,18 +653,20 @@ class Tracker:
         with fewer than two basins or no usable frame. The fallback list is
         reordered so that the winner's template leads.
 
-        Each candidate renders its own window and so has its own observed
-        cloud: the candidates run one unbatched ``track_step`` each per
-        frame (the JAX package vmaps the same function). As there, the
-        rollout runs point-to-point ICP with no robust kernel whatever
-        ``icp_variant`` and ``icp_kernel`` say."""
+        All candidates advance in one ``track_step_batched`` per frame, as
+        the JAX package vmaps ``_track_step`` over them: they share the
+        frame's mask and depth, and each renders its own window and so has
+        its own observed cloud. As there, the rollout runs point-to-point
+        ICP with no robust kernel whatever ``icp_variant`` and
+        ``icp_kernel`` say, at the single-object exit tolerance."""
         from .pose_estimator import score_pose_candidates
 
         est = self.estimator
         kept = self._distinct_basins(candidates)
         if len(kept) < 2:
             return H, 0.0
-        Ts = [torch.as_tensor(_upright(T), device=self.device) for _, T, _ in kept]
+        Ts = torch.stack([torch.as_tensor(_upright(T), device=self.device)
+                          for _, T, _ in kept])
         last = None
         for _ in range(self.init_rollout):
             color = self.camera.get_rgbd()
@@ -585,14 +675,14 @@ class Tracker:
             m = self._detect(color)
             if m is None or not bool(m.any()):
                 continue
-            Ts = [track_step(est._mesh_v, est._mesh_f, m, self.camera.depth, T, est.intr,
-                             icp_dist=INIT_RADIUS, win_hw=self._win_hw,
-                             target_pts=self.target_pts, generator=self._gen).T
-                  for T in Ts]
+            Ts = track_step_batched(est._mesh_v, est._mesh_f, m, self.camera.depth, Ts,
+                                    est.intr, INIT_RADIUS, win_hw=self._win_hw,
+                                    target_pts=self.target_pts, icp_pose_tol=5e-5,
+                                    generator=self._gen).T
             last = (self.camera.depth, m)
         if last is None:
             return H, 0.0
-        scores = score_pose_candidates(est._mesh_v, est._mesh_f, torch.stack(Ts), last[0],
+        scores = score_pose_candidates(est._mesh_v, est._mesh_f, Ts, last[0],
                                        last[1], est.intr, win_hw=self._win_hw).cpu().numpy()
         order = np.argsort(scores)
         w = int(order[0])

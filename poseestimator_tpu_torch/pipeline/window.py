@@ -46,6 +46,17 @@ def window_for_object(intr_r: Intrinsics, diag_m: float, z_m: float,
     return (h, w)
 
 
+def merge_windows(wins):
+    """One window bucket for a batch of tracks: the elementwise max of
+    their buckets; any None (full frame) wins, and so does an empty list."""
+    out = (0, 0)
+    for w in wins:
+        if w is None:
+            return None
+        out = (max(out[0], w[0]), max(out[1], w[1]))
+    return out if out != (0, 0) else None
+
+
 def window_origin(verts: torch.Tensor, T_m2c: torch.Tensor, intr_r: Intrinsics,
                   wh: int, ww: int) -> torch.Tensor:
     """Integer (2,) ``[ox, oy]`` origin at the render resolution: the

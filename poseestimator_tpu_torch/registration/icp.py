@@ -9,6 +9,13 @@ on the device and read back once per iteration (one host synchronisation per
 iteration); ``n_iters`` counts loop bodies exactly as the JAX loop does, so
 the kernel runs ``n_iters + 1`` times.
 
+``icp_point_to_point_program`` is the point-to-point loop as a program of
+``chains``: ``icp_point_to_point`` runs one, and ``chains.run_batched``
+runs many in lockstep, each with its own source and destination clouds and
+its own radius (the multi-object step and the init rollout), with one K1
+launch per evaluation for the whole batch and each chain's arithmetic that
+of an unbatched call.
+
 ``icp_point_to_point_batched`` runs a batch of chains against one shared
 destination cloud, as the JAX package's ``vmap`` over the loop does: the
 loop runs while any chain continues, a chain that has stopped keeps its
@@ -23,6 +30,7 @@ from typing import Optional
 
 import torch
 
+from .. import chains
 from ..geom3d.cloud import PointCloud
 from ..geom3d.knn import nearest_neighbor
 from ..geom3d.se3 import axis_angle_to_R, make_T, transform_points
@@ -95,6 +103,21 @@ def icp_point_to_point(
     covariance; ``accel`` enables Besl-McKay step extrapolation with the
     raw-twist exit ``accel_pose_tol`` (see the JAX package for the
     derivation)."""
+    return chains.run(icp_point_to_point_program(
+        src, dst, max_corr_dist, init_T, max_iterations, relative_fitness, relative_rmse,
+        robust, with_cov, accel, accel_pose_tol))
+
+
+def icp_point_to_point_program(src: PointCloud, dst: PointCloud, max_corr_dist,
+                               init_T: Optional[torch.Tensor] = None,
+                               max_iterations: int = 30, relative_fitness: float = 1e-6,
+                               relative_rmse: float = 1e-6, robust: str = "none",
+                               with_cov: bool = False, accel: bool = False,
+                               accel_pose_tol: float = 2e-5):
+    """``icp_point_to_point`` as a program of ``chains``: it yields an
+    ``NNQuery`` per evaluation and a ``Continue`` per loop test, and returns
+    the ``ICPResult``. ``chains.run_batched`` advances many of them, each
+    with its own clouds and radius, with one K1 launch per evaluation."""
     dev = src.points.device
     f32 = torch.float32
     if init_T is None:
@@ -106,7 +129,7 @@ def icp_point_to_point(
 
     def evaluate(T):
         moved = src.transform(T)
-        d, idx, found = nearest_neighbor(moved.points, moved.valid, dst.points, dst.valid)
+        d, idx, found = yield chains.NNQuery(moved.points, moved.valid, dst.points, dst.valid)
         inl = src.valid & found & (d <= max_corr_dist)
         n_inl = inl.sum()
         fitness = n_inl.to(f32) / n_src.to(f32)
@@ -126,12 +149,12 @@ def icp_point_to_point(
         return keep
 
     T = init_T
-    pts, idx, inl, fitness, rmse = evaluate(T)
+    pts, idx, inl, fitness, rmse = yield from evaluate(T)
     prev_fitness, prev_rmse = fitness + 1.0, rmse + 1.0
     v_prev = torch.zeros(7, dtype=f32, device=dev)
     it = 0
-    while it < max_iterations and bool(
-            keep_going(fitness, rmse, prev_fitness, prev_rmse, v_prev)):
+    while it < max_iterations and (yield chains.Continue(
+            keep_going(fitness, rmse, prev_fitness, prev_rmse, v_prev))):
         w = inl.to(f32)
         q = dst.points[idx]
         if robust != "none":
@@ -158,7 +181,7 @@ def icp_point_to_point(
             v_prev = torch.cat([v6, engage.to(f32)[None]])
         T = D @ T
         prev_fitness, prev_rmse = fitness, rmse
-        pts, idx, inl, fitness, rmse = evaluate(T)
+        pts, idx, inl, fitness, rmse = yield from evaluate(T)
         it += 1
 
     cov = None

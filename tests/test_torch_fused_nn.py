@@ -133,3 +133,40 @@ def test_wrapper_rejects_bad_input():
         tnn.fused_nn(q.double(), v4, q, v4)
     with pytest.raises(ValueError):
         tnn.fused_nn(q, v3, q, v4)
+
+
+# --- the batch axis ----------------------------------------------------------
+
+
+@pytest.mark.parametrize("name", sorted(kc.nn_batched_cases()))
+def test_batched_plain_is_the_unbatched_plain_per_problem(name):
+    """Each problem of a batch, padded with invalid points to the batch's
+    common sizes, bit for bit the unbatched plain version on its own
+    unpadded problem; an all-invalid data cloud finds nothing."""
+    (q, qv, d, dv), sizes = kc.nn_batched_cases()[name]
+    bd, bi, bf = tnn.fused_nn_batched(*(torch.from_numpy(a) for a in (q, qv, d, dv)))
+    for b, (n, m) in enumerate(sizes):
+        ud, ui, uf = tnn.fused_nn_plain(*(torch.from_numpy(a[b, :k]) for a, k in
+                                          ((q, n), (qv, n), (d, m), (dv, m))))
+        assert torch.equal(bi[b, :n], ui) and torch.equal(bf[b, :n], uf)
+        assert torch.equal(bd[b, :n], ud)
+        if not dv[b].any():
+            assert not bf[b].any()
+
+
+def test_batched_plain_matches_vmapped_pallas_interpret(rng):
+    """The JAX package's vmap of nn_pallas (one launch over a grid axis)
+    against the batched plain version, each problem with its own data."""
+    import jax
+
+    B, n, m = 3, 100, 300
+    q = rng.normal(size=(B, n, 3)).astype(np.float32)
+    d = rng.normal(size=(B, m, 3)).astype(np.float32)
+    qv = rng.uniform(size=(B, n)) < 0.9
+    dv = rng.uniform(size=(B, m)) < 0.8
+    dv[1] = False
+    pj = jax.vmap(lambda *a: nn_pallas(*a, interpret=True))(
+        jnp.asarray(q), jnp.asarray(qv), jnp.asarray(d), jnp.asarray(dv))
+    pt = tnn.fused_nn_batched(*(torch.from_numpy(a) for a in (q, qv, d, dv)))
+    _assert_same([np.asarray(a) for a in pj], [a.numpy() for a in pt])
+    assert not pt[2][1].any()

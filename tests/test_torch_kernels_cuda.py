@@ -163,3 +163,126 @@ def test_raster_kernel_on_the_tracker_scene(angle):
     torch.cuda.synchronize()
     assert torch.equal(izk, traster.raster_plain(coef, 480, 640, chunk=64))
     assert int((izk > 0).sum()) > 10000
+
+
+# --- the batch axis ----------------------------------------------------------
+
+
+def test_batched_wrappers_raise_on_other_devices():
+    """The batched entries, like the unbatched ones: a tensor on neither
+    the CPU nor a CUDA card is an error."""
+    q = torch.zeros(2, 4, 3, device="meta")
+    v = torch.ones(2, 4, dtype=torch.bool, device="meta")
+    with pytest.raises(RuntimeError):
+        tnn.fused_nn_batched(q, v, q, v)
+    with pytest.raises(RuntimeError):
+        traster.raster_batched(torch.zeros(2, 8, 12, device="meta"),
+                               torch.zeros(2, 8, 4, device="meta"), 8, 8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(kc.nn_batched_cases()))
+def test_batched_fused_nn_kernel_per_problem(name):
+    """One launch of K1's batched entry: each problem bit for bit an
+    unbatched launch on its own unpadded problem and the batched plain
+    version; only the batched counter moves."""
+    _need_card()
+    batch, sizes = kc.nn_batched_cases()[name]
+    q, qv, d, dv = (torch.from_numpy(a).cuda() for a in batch)
+    b0, u0 = tnn.fused_nn_batched_stats.launches, tnn.fused_nn_stats.launches
+    got = tnn.fused_nn_batched(q, qv, d, dv)
+    torch.cuda.synchronize()
+    assert tnn.fused_nn_batched_stats.launches == b0 + 1
+    assert tnn.fused_nn_stats.launches == u0
+    for a, b in zip(got, tnn.fused_nn_batched_plain(q, qv, d, dv)):
+        assert torch.equal(a, b)
+    for b, (n, m) in enumerate(sizes):
+        one = tnn.fused_nn(q[b, :n], qv[b, :n], d[b, :m], dv[b, :m])
+        for a, u in zip(got, one):
+            assert torch.equal(a[b, :n], u)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(kc.raster_batched_cases()))
+def test_batched_raster_kernel_per_problem(name):
+    """One launch of K2's batched entry: each problem bit for bit an
+    unbatched launch on its rows and the batched plain version."""
+    _need_card()
+    c = kc.raster_batched_cases()[name]
+    v, f, T, o = (torch.from_numpy(c[k]).cuda() for k in ("vertices", "faces", "T", "origin"))
+    coef, bbox = traster.face_coeffs(v, f, T, c["intr"], near=0.01, origin=o)
+    b0, u0 = traster.raster_batched_stats.launches, traster.raster_stats.launches
+    izk = traster.raster_batched(coef, bbox, c["H"], c["W"])
+    torch.cuda.synchronize()
+    assert traster.raster_batched_stats.launches == b0 + 1
+    assert traster.raster_stats.launches == u0
+    assert torch.equal(izk, traster.raster_batched_plain(coef, c["H"], c["W"], chunk=64))
+    for b in range(T.shape[0]):
+        assert torch.equal(izk[b], traster.raster(coef[b], bbox[b], c["H"], c["W"]))
+
+
+@pytest.mark.cuda
+def test_voxel_down_sample_is_deterministic():
+    """Two voxelisations of one 16384-point cloud on the card, bit-equal."""
+    _need_card()
+    from poseestimator_tpu_torch.geom3d.cloud import PointCloud
+    from poseestimator_tpu_torch.geom3d.sampling import voxel_down_sample
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    pts = torch.randn(16384, 3, device="cuda", generator=g) * 0.1
+    cloud = PointCloud(pts, torch.rand(16384, device="cuda", generator=g) < 0.95)
+    a, b = (voxel_down_sample(cloud, 0.01, capacity=4096) for _ in range(2))
+    assert torch.equal(a.points, b.points) and torch.equal(a.valid, b.valid)
+    assert int(a.valid.sum()) > 1000
+
+
+@pytest.mark.cuda
+def test_batched_track_step_does_not_depend_on_the_batch():
+    """Track i of a B = 3 and a B = 8 batched step (B = 8 repeats the three
+    instances of the multi-object scene from other start poses) is bit for
+    bit itself at B = 1 and the unbatched track step, on the same draws:
+    pose, fitness, rmse, covariance and ICP iterations."""
+    _need_card()
+    from poseestimator_tpu_torch.camera import SyntheticCamera
+    from poseestimator_tpu_torch.pipeline.tracking import (step_draws, track_step,
+                                                           track_step_batched)
+    from poseestimator_tpu_torch.pipeline.window import window_for_object
+    from poseestimator_tpu_torch.render.mesh import pad_faces
+
+    v, f = kc.lshape_mesh()
+    diag = float(np.linalg.norm(v.max(0) - v.min(0)))
+    intr = Intrinsics.from_fov(60.0, 640, 480)
+    mv, mf = torch.from_numpy(v).cuda(), torch.from_numpy(pad_faces(f, 256)).cuda()
+    truth = kc.multi_object_poses(3, diag, 0.05)
+    cam = SyntheticCamera(v, np.zeros_like(v), [truth], intr, mesh=(mv, mf), device="cuda")
+    cam.get_rgbd()
+    masks = torch.from_numpy(cam.object_masks).cuda()
+    rng = np.random.default_rng(0)
+    starts = []
+    for i in range(8):  # each start 1-2 cm and ~1 degree off its instance
+        D = np.eye(4, dtype=np.float32)
+        a = rng.normal(size=3) * 0.01
+        D[:3, :3] = [[1, -a[2], a[1]], [a[2], 1, -a[0]], [-a[1], a[0], 1]]
+        D[:3, 3] = rng.normal(size=3) * 0.01
+        starts.append(D @ truth[i % 3])
+    Ts = torch.from_numpy(np.stack(starts).astype(np.float32)).cuda()
+    win = window_for_object(intr.scaled(2), diag, float(truth[:, 2, 3].max()))
+    dists = torch.tensor([0.05, 0.02, 0.01, 0.01, 0.05, 0.02, 0.01, 0.01], device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(1)
+    draws = [step_draws(intr, win, 0, g, "cuda") for _ in range(8)]
+    sel = torch.arange(8, device="cuda") % 3
+    run = lambda idx: track_step_batched(  # noqa: E731
+        mv, mf, masks[sel[idx]], cam.depth, Ts[idx], intr, dists[idx], win_hw=win,
+        draws=[draws[i] for i in idx.tolist()])
+    b8 = run(torch.arange(8, device="cuda"))
+    b3 = run(torch.arange(3, device="cuda"))
+    for i in range(8):
+        one = run(torch.tensor([i], device="cuda"))
+        alone = track_step(mv, mf, masks[i % 3], cam.depth, Ts[i], intr, float(dists[i]),
+                           win_hw=win, icp_pose_tol=1e-4, draws=draws[i])
+        for res, k in [(b8, i), (one, 0)] + ([(b3, i)] if i < 3 else []):
+            assert res.n_iters[k] == alone.n_iters
+            for got, want in ((res.T[k], alone.T), (res.fitness[k], alone.fitness),
+                              (res.rmse[k], alone.rmse), (res.cov[k], alone.cov)):
+                assert torch.equal(got, want)
+    assert max(b8.n_iters) > min(b8.n_iters)  # the tracks exit at their own iterations

@@ -14,6 +14,7 @@ import torch
 from poseestimator_tpu import geom3d as g3
 from poseestimator_tpu.render import raster as jraster
 from poseestimator_tpu.render.mesh import make_icosphere as j_icosphere
+from poseestimator_tpu_torch import kernel_cases as kc
 from poseestimator_tpu_torch.geom3d.camera import Intrinsics
 from poseestimator_tpu_torch.render import raster as traster
 from poseestimator_tpu_torch.render.mesh import make_icosphere, pad_faces
@@ -195,3 +196,43 @@ def test_kernel_edge_cases_reach_the_edges():
     for f in range(32, 64):
         assert (traster.raster_plain(coef[f:f + 1], H, W) > 0).all()
     assert cases["61x45 window"]["H"] % 8 and cases["61x45 window"]["W"] % 8
+
+
+# --- the batch axis ----------------------------------------------------------
+
+
+@pytest.mark.parametrize("name", sorted(kc.raster_batched_cases()))
+def test_batched_setup_and_plain_raster_are_the_unbatched_per_problem(name):
+    """The batched face setup and the batched plain raster, problem by
+    problem bit for bit the unbatched ones (the first three problems of a
+    case: the card tests take all eight); the mixed-class stack's
+    degenerate padding faces get c0 = -1e30 and an empty box."""
+    c = kc.raster_batched_cases()[name]
+    v, f, T, o = (torch.from_numpy(c[k]) for k in ("vertices", "faces", "T", "origin"))
+    T, o = T[:3], o[:3]
+    if v.dim() == 3:
+        v, f = v[:3], f[:3]
+    coef, bbox = traster.face_coeffs(v, f, T, c["intr"], near=0.01, origin=o)
+    iz = traster.raster_batched(coef, bbox, c["H"], c["W"])
+    for b in range(T.shape[0]):
+        vb, fb = (v[b], f[b]) if v.dim() == 3 else (v, f)
+        cb, bb = traster.face_coeffs(vb, fb, T[b], c["intr"], near=0.01, origin=o[b])
+        assert torch.equal(coef[b], cb) and torch.equal(bbox[b], bb)
+        assert torch.equal(iz[b], traster.raster_plain(cb, c["H"], c["W"]))
+    if v.dim() == 3:
+        pad = (f == 0).all(-1)  # the box's degenerate padding faces
+        assert pad.any()
+        assert (coef[..., 2][pad] == -1e30).all()
+        assert (bbox[pad] == torch.tensor([1e9, -1e9, 1e9, -1e9])).all()
+        depth = traster.render_depth_mesh_batched(v, f, T, c["intr"], near=0.01, far=5.0,
+                                                  origin=o, out_hw=(c["H"], c["W"]))
+        assert torch.equal(depth, traster.izmax_to_depth(iz, 0.01, 5.0))
+        assert (depth > 0).any()
+
+
+def test_batched_wrapper_rejects_bad_input():
+    coef = torch.zeros(2, 16, 12)
+    with pytest.raises(ValueError):
+        traster.raster_batched(coef, torch.zeros(2, 15, 4), 8, 8)
+    with pytest.raises(ValueError):
+        traster.raster_batched(coef[0], torch.zeros(16, 4), 8, 8)
