@@ -46,7 +46,25 @@ port's two paths and checks their accuracy against ground truth:
   1) and through the unbatched track step, on the same draws; (m4) does so
   at B = 3 and 8. The gates: ADD-S mean <= 1.5 cm and no identity switch.
   Then the batched K1 and K2 are held bit for bit against their batched
-  plain versions at every batched shape the phase gave them, and timed.
+  plain versions at every batched shape the phase gave them, and timed;
+- the offline single-frame path and its BOP evaluation: the port writes a
+  BOP scene of the L-shape (three 640x480 frames 2 m out at the poses of
+  the JAX package's scene-sweep test, K2 depth in uint16 mm, masks, RGB,
+  ``models_info.json`` with the L-shape's two-fold symmetry) and its 5-view
+  template database, then ``apps/eval_bop.run`` sweeps it with the offline
+  registration (400 points, the native exact clique) and with the product
+  search on two frames. Printed: the per-frame rows and the summaries (ADD-S,
+  MSSD, MSPD, VSD, the Average Recalls), per frame the synchronised
+  registration ms, its K1 launches (single and batched) and the cliques
+  that ran, ADD plain and against the nearer symmetric twin; per sweep the
+  wall ms per frame and the ms per frame of reading the PNGs (the port's
+  writer Paeth-filters every row, so the reader undoes the hardest filter
+  throughout). The gates: bop_ar > 0.5 and ar_mssd >
+  0.5 offline, bop_ar > 0.5 for the product search, every offline frame's
+  ADD against the nearer twin < 0.15 x diag, the exact clique on every
+  scored template (a failed g++ build fails the phase). K1 is then held bit
+  for bit against its plain version at the offline shapes, single and
+  batched over the five candidate poses, and timed.
 
 The search phase also runs one search twice from one generator state on
 observation (b) and demands bit-equal poses and rankings.
@@ -64,7 +82,7 @@ Python call timed by CUDA events, host cost included. The kernels line's
 ``ms`` is ``call_ms``.
 
 Run from the repository root:
-    python3 chip_smoke.py  [--out FILE.json] [--profile FILE.txt]
+    python3 chip_smoke.py  [--out FILE.json] [--profile FILE.txt] [--offline-dir DIR]
 """
 from __future__ import annotations
 
@@ -91,6 +109,11 @@ ROLLOUT = 2  # init rollout frames of the tracker's part (c)
 MULTI_OBJ = 3
 MULTI_FRAMES = {"m1": 40, "m2": 40, "m3": 30}
 MULTI_ROT = 0.008
+# the offline phase: points of the offline registration (the one-image
+# app's default), frames of the product search, and the ADD gate (x diag)
+OFFLINE_POINTS = 400
+OFFLINE_PRODUCT_FRAMES = 2
+OFFLINE_ADD_DIAG = 0.15
 # non-tensor float32 peak, HBM rate, and single instructions a second
 # (132 SMs x 128 lanes x 1.98 GHz): the rate of an FMA-free kernel
 H100 = {"f32_ops": 67e12, "bytes": 3.35e12, "lane_instr": 132 * 128 * 1.98e9}
@@ -269,6 +292,9 @@ def check_fused_nn(torch, fnn, dev) -> dict:
                          "launch_floor_ms": device_ms(torch, lambda: one.zero_())}
     q, qv, d, dv = cases["16k x 16k invalid masks"]
     out["16384x16384"] = {"device_ms": device_ms(torch, lambda: fnn.fused_nn(q, qv, d, dv), 10),
+                          "call_ms": call_ms(torch, lambda: fnn.fused_nn(q, qv, d, dv), 20),
+                          "plain_ms": call_ms(torch, lambda: fnn.fused_nn_plain(q, qv, d, dv), 3,
+                                              1),
                           "bound_ms": nn_bound(16384, 16384)[0],
                           "issue_ms": nn_issue_ms(16384, 16384),
                           # a 1 GiB distance matrix per call
@@ -330,6 +356,7 @@ def check_search_shapes(torch, fnn, rs, nn_inputs: dict, raster_inputs: dict,
         b = nn_bound(n, m)
         out["K1"][f"{n}x{m}"] = {
             "device_ms": device_ms(torch, lambda: fnn.fused_nn(q, qv, d, dv)),
+            "call_ms": call_ms(torch, lambda: fnn.fused_nn(q, qv, d, dv)),
             "plain_ms": call_ms(torch, lambda: fnn.fused_nn_plain(q, qv, d, dv), reps=10),
             "library_ms": device_ms(torch, lambda: torch.cdist(q, d).min(1)),
             "bound_ms": b[0], "bound_by": b[1]}
@@ -341,12 +368,14 @@ def check_search_shapes(torch, fnn, rs, nn_inputs: dict, raster_inputs: dict,
         b = raster_bound(bbox, H, W)
         out["K2"][f"{H}x{W}, {F} faces"] = {
             "device_ms": device_ms(torch, lambda: rs.raster(coef, bbox, H, W)),
+            "call_ms": call_ms(torch, lambda: rs.raster(coef, bbox, H, W)),
             "plain_ms": call_ms(torch, lambda: rs.raster_plain(coef, H, W, chunk=64), reps=10),
             "bound_ms": b[0], "bound_by": b[1]}
     for k in ("K1", "K2"):
         for shape, t in out[k].items():
             log(f"{k} at {where} {shape}: identical to the plain version; device "
-                f"{t['device_ms']:.5f} ms, plain {t['plain_ms']:.4f} ms, bound "
+                f"{t['device_ms']:.5f} ms, call {t['call_ms']:.4f} ms, plain "
+                f"{t['plain_ms']:.4f} ms, bound "
                 f"{t['bound_ms']:.3g} ms ({t['bound_by']})"
                 + (f", library {t['library_ms']:.5f} ms" if "library_ms" in t else ""))
     return out
@@ -1023,6 +1052,176 @@ def multi_phase(torch, dev, kc, fnn, rs, tmp: str, small=(320, 240), full=(640, 
     return {"parts": parts, "nn_inputs": nn_inputs, "raster_inputs": raster_inputs}
 
 
+def offline_phase(torch, dev, kc, fnn, rs, out_dir: str, profile_path=None) -> dict:
+    """The offline single-frame path and its BOP evaluation (see the module
+    docstring): the port writes the scene into ``out_dir`` and runs
+    ``apps/eval_bop.run`` over it, first with the offline registration, then
+    with the product search. Per frame: the registration's synchronised
+    ms and K1 launches (single and batched), the cliques that ran, and ADD
+    plain and against the nearer symmetric twin. Returns the summaries and
+    the K1 inputs of the offline run by shape (first call of each).
+    ``profile_path``: also trace 2 offline registrations of the last frame
+    there."""
+    from poseestimator_tpu_torch.apps import eval_bop
+    from poseestimator_tpu_torch.geom3d import knn as knn_mod
+    from poseestimator_tpu_torch.geom3d.camera import Intrinsics
+    from poseestimator_tpu_torch.geom3d.cloud import from_points
+    from poseestimator_tpu_torch.geom3d.metrics import add_metric
+    from poseestimator_tpu_torch.pipeline.pose_estimator import PoseEstimator
+    from poseestimator_tpu_torch.registration import native
+    from poseestimator_tpu_torch.templates.creation import render_templates
+    from poseestimator_tpu_torch.utils import bop
+    from poseestimator_tpu_torch.utils.plyio import write_ply
+
+    t = time.perf_counter()
+    try:
+        lib = native.build()
+    except RuntimeError as e:
+        fail(f"offline: the exact max-clique library did not build: {e}")
+    native_s = time.perf_counter() - t
+    if not native.available():
+        fail(f"offline: {lib} did not load")
+    v, f = kc.lshape_mesh()
+    sym = kc.lshape_symmetry()
+    diag_mm = float(np.linalg.norm(v.max(0) - v.min(0))) * 1e3
+    os.makedirs(out_dir, exist_ok=True)
+    cad = os.path.join(out_dir, "obj_000001.ply")
+    write_ply(cad, v, faces=f)
+    views, scene = os.path.join(out_dir, "views"), os.path.join(out_dir, "scene")
+    rs.raster_stats.launches = 0
+    render_templates(cad, views, device=dev)
+    kc.write_bop_scene(scene, v, f, Intrinsics.from_fov(60.0, 640, 480), kc.bop_scene_poses(),
+                       symmetries=sym[None], device=dev)
+    torch.cuda.synchronize()
+    log(f"offline: native clique library {os.path.basename(str(lib))} in {native_s:.2f} s; "
+        f"CAD, 5-view template database and 3-frame 640x480 scene written to {out_dir} "
+        f"({rs.raster_stats.launches} K2 launches)")
+
+    frames, last_call = [], {}
+
+    def k1_now():
+        return fnn.fused_nn_stats.launches, fnn.fused_nn_batched_stats.launches
+
+    def timed(fn, kind):
+        def wrapped(*a, **kw):
+            torch.cuda.synchronize()
+            (k1, k1b), t0 = k1_now(), time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            last_call[kind] = (a, kw)
+            rec = {"kind": kind, "ms": (time.perf_counter() - t0) * 1e3,
+                   "k1": k1_now()[0] - k1, "k1_batched": k1_now()[1] - k1b}
+            if kind == "offline":
+                rec["cliques"] = [m.get("clique", m.get("note")) for m in out[3]]
+                rec["winner"] = out[0]
+            frames.append(rec)
+            return out
+        return wrapped
+
+    def metrics_recorded(T_est_mm, T_gt_mm, K, verts_mm, intr, **kw):
+        out = orig_fm(T_est_mm, T_gt_mm, K, verts_mm, intr, **kw)
+        model = from_points(verts_mm, device=dev)
+        Te = torch.as_tensor(T_est_mm, dtype=torch.float32, device=dev)
+        Tg = torch.as_tensor(T_gt_mm, dtype=torch.float32, device=dev)
+        S_mm = sym.astype(np.float64).copy()
+        S_mm[:3, 3] *= 1e3
+        twins = [float(add_metric(Te, Tg @ torch.as_tensor(S, dtype=torch.float32, device=dev),
+                                  model)) for S in (np.eye(4), S_mm)]
+        frames[-1].update(add_mm=out["add_mm"], add_twin_mm=twins[1],
+                          add_nearer_mm=min(twins), nearer="twin" if twins[1] < twins[0] else
+                          "identity")
+        return out
+
+    png_ms = [0.0]
+
+    def read_timed(path):
+        t0 = time.perf_counter()
+        img = orig_read(path)
+        png_ms[0] += (time.perf_counter() - t0) * 1e3
+        return img
+
+    base = ["--scene-dir", scene, "--ply", cad, "--templates", views, "--mask", "visib",
+            "--models-info", os.path.join(scene, "models_info.json"), "--device", str(dev)]
+    nn_inputs, nn_batched_inputs = {}, {}
+    orig_off, orig_cands = eval_bop.find_best_template_teaser, \
+        PoseEstimator.find_best_template_candidates
+    orig_fm, orig_nn, orig_nnb = bop.frame_metrics, knn_mod.fused_nn, knn_mod.fused_nn_batched
+    orig_read = eval_bop.read_png
+    out = {"diag_mm": diag_mm, "native_build_s": native_s}
+    try:
+        eval_bop.find_best_template_teaser = timed(orig_off, "offline")
+        PoseEstimator.find_best_template_candidates = timed(orig_cands, "product")
+        bop.frame_metrics = metrics_recorded
+        eval_bop.read_png = bop.read_png = read_timed
+        for name, extra in (("offline", ["--target-points", str(OFFLINE_POINTS)]),
+                            ("product", ["--registration", "product", "--max-frames",
+                                         str(OFFLINE_PRODUCT_FRAMES)])):
+            if name == "offline":  # keeps the kernels' inputs at the offline shapes
+                knn_mod.fused_nn = _first_call_recorder(
+                    torch, nn_inputs, orig_nn, lambda q, qv, d, dv: (q.shape[0], d.shape[0]))
+                knn_mod.fused_nn_batched = _first_call_recorder(
+                    torch, nn_batched_inputs, orig_nnb,
+                    lambda q, qv, d, dv: (q.shape[0], q.shape[1], d.shape[1]))
+            frames.clear()
+            png_ms[0] = 0.0
+            fnn.fused_nn_stats.launches = 0
+            fnn.fused_nn_batched_stats.launches = 0
+            rs.raster_stats.launches = 0
+            t = time.perf_counter()
+            summary = eval_bop.run(eval_bop.build_parser().parse_args(base + extra))
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t
+            knn_mod.fused_nn, knn_mod.fused_nn_batched = orig_nn, orig_nnb
+            k1, k1b = fnn.fused_nn_stats.launches, fnn.fused_nn_batched_stats.launches
+            k2 = rs.raster_stats.launches
+            if summary is None:
+                fail(f"offline {name}: no frame evaluated")
+            n_frames = max(len(frames), 1)
+            part = {"summary": summary, "frames": list(frames), "wall_s": wall_s,
+                    "wall_ms_per_frame": wall_s * 1e3 / n_frames,
+                    "png_read_ms_per_frame": png_ms[0] / n_frames,
+                    "k1_launches": k1, "k1_batched_launches": k1b, "k2_launches": k2,
+                    "k1_per_frame": k1 / n_frames, "k1_batched_per_frame": k1b / n_frames,
+                    "ms_per_frame": [r["ms"] for r in frames]}
+            out[name] = part
+            log(json.dumps({"offline": {"registration": name, **{
+                k: v for k, v in part.items() if k != "frames"}, "frames": frames}}))
+    finally:
+        eval_bop.find_best_template_teaser = orig_off
+        PoseEstimator.find_best_template_candidates = orig_cands
+        bop.frame_metrics = orig_fm
+        eval_bop.read_png = bop.read_png = orig_read
+        knn_mod.fused_nn, knn_mod.fused_nn_batched = orig_nn, orig_nnb
+
+    off, prod = out["offline"], out["product"]
+    if off["summary"]["frames"] != 3 or prod["summary"]["frames"] != OFFLINE_PRODUCT_FRAMES:
+        fail(f"offline: {off['summary']['frames']} offline and {prod['summary']['frames']} "
+             f"product frames evaluated")
+    if off["k1_launches"] == 0 or off["k1_batched_launches"] == 0:
+        fail("offline: K1 (single or batched) was not launched by the offline path")
+    if prod["k1_launches"] == 0 or prod["k2_launches"] == 0:
+        fail("offline: the product search launched no K1 or no K2")
+    for key in ("bop_ar", "ar_mssd"):
+        if not off["summary"][key] > 0.5:
+            fail(f"offline: {key} {off['summary'][key]} <= 0.5")
+    if not prod["summary"]["bop_ar"] > 0.5:
+        fail(f"offline product search: bop_ar {prod['summary']['bop_ar']} <= 0.5")
+    for r in off["frames"]:
+        if not r["add_nearer_mm"] < OFFLINE_ADD_DIAG * diag_mm:
+            fail(f"offline frame: ADD {r['add_nearer_mm']:.2f} mm against the nearer twin >= "
+                 f"{OFFLINE_ADD_DIAG} x diag ({OFFLINE_ADD_DIAG * diag_mm:.1f} mm)")
+        scored = [c for c in r["cliques"] if c != "few_corr"]
+        if not scored or any(c != "exact" for c in scored):
+            fail(f"offline frame: cliques {r['cliques']}, expected 'exact' for every scored "
+                 f"template")
+    if profile_path:
+        a, kw = last_call["offline"]
+        off["profile"] = profile_calls(torch, lambda: orig_off(*a, **kw), 2, profile_path,
+                                       "registration")
+    out["nn_inputs"], out["nn_batched_inputs"] = nn_inputs, nn_batched_inputs
+    return out
+
+
 def check_b_independence(torch, trk, args, kw, draws, res) -> dict:
     """Each track of a recorded batched step run again alone through the
     batched step (B = 1) and through the unbatched ``track_step`` on its
@@ -1205,7 +1404,11 @@ def main(argv=None) -> int:
     p.add_argument("--profile", metavar="FILE.txt",
                    help="also trace 5 frames with torch.profiler and write the kernel table "
                    "to this file, 2 searches to FILE_search.txt and 3 batched multi-object "
-                   "steps (B = 3) to FILE_multi.txt")
+                   "steps (B = 3) to FILE_multi.txt and 2 offline registrations to "
+                   "FILE_offline.txt")
+    p.add_argument("--offline-dir", metavar="DIR",
+                   help="write the offline phase's CAD, template database and BOP scene "
+                   "here and keep them (default: a temporary directory)")
     args = p.parse_args(argv)
 
     try:
@@ -1262,7 +1465,8 @@ def main(argv=None) -> int:
         f"plain {k1['plain_ms']:.4f} ms, bound {k1['bound'][0]:.5f} ms ({k1['bound'][1]}), "
         f"FMA-free issue ceiling {k1['issue_ms']:.5f} ms, library_ms (torch.cdist(q, d).min(1), "
         f"TF32 off; the port never calls it) {k1['library_ms']:.5f} ms")
-    log(f"K1 16384x16384: device {k1['16384x16384']['device_ms']:.5f} ms, "
+    log(f"K1 16384x16384: device {k1['16384x16384']['device_ms']:.5f} ms, call "
+        f"{k1['16384x16384']['call_ms']:.4f} ms, plain {k1['16384x16384']['plain_ms']:.4f} ms, "
         f"FMA-free issue ceiling {k1['16384x16384']['issue_ms']:.5f} ms, library_ms "
         f"{k1['16384x16384']['library_ms']:.5f} ms")
     cm = k1["cost_model"]
@@ -1345,12 +1549,19 @@ def main(argv=None) -> int:
         # 8. multi-object tracking, then the batched kernels at its shapes
         multi = multi_phase(torch, dev, kc, fnn, rs, tmp, profile_path=(
             "{0}_multi{1}".format(*os.path.splitext(args.profile)) if args.profile else None))
+        # 9. the offline path and the BOP scene sweep
+        offline = offline_phase(torch, dev, kc, fnn, rs,
+                                args.offline_dir or os.path.join(tmp, "offline"), profile_path=(
+            "{0}_offline{1}".format(*os.path.splitext(args.profile)) if args.profile else None))
     search_k = check_search_shapes(torch, fnn, rs, search.pop("nn_inputs"),
                                    search.pop("raster_inputs"))
     tracker_k = check_search_shapes(torch, fnn, rs, tracker.pop("nn_inputs"),
                                     tracker.pop("raster_inputs"), where="the tracker's")
     multi_k = check_batched_shapes(torch, fnn, rs, multi.pop("nn_inputs"),
                                    multi.pop("raster_inputs"))
+    offline_k = check_search_shapes(torch, fnn, rs, offline.pop("nn_inputs"), {},
+                                    where="the offline path's")
+    offline_kb = check_batched_shapes(torch, fnn, rs, offline.pop("nn_batched_inputs"), {})
 
     if args.profile:
         # the first 5 frames of the sequence again from the start pose
@@ -1373,7 +1584,7 @@ def main(argv=None) -> int:
         "adds_mean_cm": adds_mean, "adds_max_cm": float(max(adds)),
         "k1_launches": k1_launches, "k2_launches": k2_launches,
         "search": search, "tracker": tracker["parts"], "icp_options": icp_options,
-        "multi": multi["parts"],
+        "multi": multi["parts"], "offline": offline,
     }
     log(f"track step alone: {track_ms:.3f} ms; one host read: {read_us:.1f} us")
     k2_main = k2["shapes"][k2["main"]]
@@ -1388,8 +1599,12 @@ def main(argv=None) -> int:
          "shape": "4096x4096",
          "other_shapes": {"16384x16384": k1["16384x16384"],
                           **{f"search {k}": v for k, v in search_k["K1"].items()},
-                          **{f"tracker {k}": v for k, v in tracker_k["K1"].items()}},
+                          **{f"tracker {k}": v for k, v in tracker_k["K1"].items()},
+                          **{f"offline {k}": v for k, v in offline_k["K1"].items()}},
          "search_launches": {n: r["k1_launches"] for n, r in search["scenes"].items()},
+         "offline_launches": {n: {"k1_launches": offline[n]["k1_launches"],
+                                  "k1_per_frame": offline[n]["k1_per_frame"]}
+                              for n in ("offline", "product")},
          "tracker_launches": {p["part"]: {k: p[k] for k in (
              "k1_launches", "k1_per_tracked_frame", "k1_per_init")}
              for p in tracker["parts"].values()},
@@ -1413,13 +1628,18 @@ def main(argv=None) -> int:
              for p in tracker["parts"].values()}},
     ]}
     mparts = [multi["parts"][k] for k in ("m1", "m2", "m3")]
-    for name, key, source, replaces, shapes in (
+    k1b_offline = {"offline_launches": {n: {k: offline[n][k] for k in (
+        "k1_batched_launches", "k1_batched_per_frame")} for n in ("offline", "product")}}
+    for name, key, source, replaces, shapes, extra in (
             ("K1 fused_nn batched", "k1_launches", "poseestimator_tpu_torch/csrc/fused_nn.cu",
-             "poseestimator_tpu/geom3d/pallas_nn.py:30", multi_k["K1"]),
+             "poseestimator_tpu/geom3d/pallas_nn.py:30",
+             {**multi_k["K1"], **{f"offline {k}": v for k, v in offline_kb["K1"].items()}},
+             k1b_offline),
             ("K2 raster batched", "k2_launches", "poseestimator_tpu_torch/csrc/raster.cu",
-             "poseestimator_tpu/render/raster.py:134", multi_k["K2"])):
+             "poseestimator_tpu/render/raster.py:134", multi_k["K2"], {})):
         # the main shape: the largest batch of the 640x480 part
-        main = max(shapes, key=lambda k: int(k.split(" ")[0][2:]))
+        main = max((k for k in shapes if k.startswith("B=")),
+                   key=lambda k: int(k.split(" ")[0][2:]))
         t = shapes[main]
         kernels_line["kernels"].append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -1430,7 +1650,7 @@ def main(argv=None) -> int:
             "other_shapes": {k: v for k, v in shapes.items() if k != main},
             "multi_launches": {p["part"]: {k: p[k] for k in (
                 key, "k1_per_tracked_frame" if key == "k1_launches" else "k2_per_tracked_frame")}
-                for p in mparts}})
+                for p in mparts}, **extra})
     summary["kernels"] = kernels_line["kernels"]
     if args.profile:
         summary["profile"] = summary_prof
@@ -1439,7 +1659,8 @@ def main(argv=None) -> int:
             json.dump(summary, f, indent=1)
     log(f"card: {card}")
     log(json.dumps({k: v for k, v in summary.items() if k not in (
-        "frame_ms", "icp_n_iters", "kernels", "search", "tracker", "multi", "icp_options")}))
+        "frame_ms", "icp_n_iters", "kernels", "search", "tracker", "multi", "icp_options",
+        "offline")}))
     log(json.dumps({"search": search}))
     log(json.dumps(kernels_line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

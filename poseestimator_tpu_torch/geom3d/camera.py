@@ -56,6 +56,7 @@ def backproject_depth(
     depth_min: float = 1e-6,
     depth_max: float = float("inf"),
     origin: Optional[torch.Tensor] = None,
+    color: Optional[torch.Tensor] = None,
 ) -> PointCloud:
     """Depth image (H, W) in metres -> camera-frame cloud of capacity H*W.
 
@@ -81,4 +82,21 @@ def backproject_depth(
     if mask is not None:
         valid = valid & (mask != 0)
     valid = valid.reshape(-1)
-    return PointCloud(points=pts * valid[:, None], valid=valid)
+    cols = None
+    if color is not None:
+        scale = 1.0 if color.is_floating_point() else 255.0
+        cols = color.reshape(-1, 3).to(torch.float32) / scale
+    return PointCloud(points=pts * valid[:, None], valid=valid, colors=cols)
+
+
+def project_points(points: torch.Tensor, K: torch.Tensor, T_m2c: torch.Tensor):
+    """Pixels of (N, 3) model points under one (4, 4) pose or a (..., 4, 4)
+    stack: ``(uv (..., N, 2), in_front (..., N) bool)``. Points at z <= 0 in
+    the camera frame are masked (their uv divide by 1), not dropped."""
+    pc = points @ T_m2c[..., :3, :3].transpose(-1, -2) + T_m2c[..., None, :3, 3]
+    z = pc[..., 2]
+    in_front = z > 0
+    zs = torch.where(in_front, z, torch.ones_like(z))
+    u = K[0, 0] * pc[..., 0] / zs + K[0, 2]
+    v = K[1, 1] * pc[..., 1] / zs + K[1, 2]
+    return torch.stack([u, v], dim=-1), in_front

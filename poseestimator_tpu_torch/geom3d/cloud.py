@@ -8,8 +8,10 @@ from __future__ import annotations
 from dataclasses import dataclass, replace
 from typing import Optional
 
+import numpy as np
 import torch
 
+from ..device import resolve_device
 from .se3 import transform_points
 
 
@@ -20,6 +22,7 @@ class PointCloud:
     points: torch.Tensor  # (N, 3) float32
     valid: torch.Tensor  # (N,) bool
     normals: Optional[torch.Tensor] = None  # (N, 3) float32 unit, or None
+    colors: Optional[torch.Tensor] = None  # (N, 3) float32 in [0, 1], or None
 
     @property
     def capacity(self) -> int:
@@ -68,4 +71,34 @@ def compact(cloud: PointCloud, capacity: int) -> PointCloud:
     n_valid = torch.clamp(cloud.count(), max=capacity)
     new_valid = torch.arange(capacity, device=cloud.points.device) < n_valid
     return PointCloud(points=take(cloud.points) * new_valid[:, None].to(cloud.points.dtype),
-                      valid=new_valid, normals=take(cloud.normals))
+                      valid=new_valid, normals=take(cloud.normals), colors=take(cloud.colors))
+
+
+def from_points(points, capacity: Optional[int] = None, colors=None, normals=None,
+                device: str | torch.device = "cuda") -> PointCloud:
+    """A cloud of the dense (n, 3) ``points`` padded to ``capacity`` rows
+    (default n) on ``device``; ``colors`` and ``normals`` (n, 3) alike."""
+    dev = resolve_device(device)
+
+    def as_rows(a):
+        return torch.as_tensor(np.asarray(a, np.float32) if not torch.is_tensor(a) else a,
+                               dtype=torch.float32, device=dev).reshape(-1, 3)
+
+    pts = as_rows(points)
+    n = pts.shape[0]
+    cap = n if capacity is None else int(capacity)
+    if cap < n:
+        raise ValueError(f"capacity {cap} < number of points {n}")
+
+    def pad(a):
+        if a is None:
+            return None
+        return torch.cat([as_rows(a), pts.new_zeros((cap - n, 3))])
+
+    valid = torch.arange(cap, device=dev) < n
+    return PointCloud(points=pad(pts), valid=valid, normals=pad(normals), colors=pad(colors))
+
+
+def to_numpy(cloud: PointCloud) -> np.ndarray:
+    """The valid points as a dense (n_valid, 3) numpy array."""
+    return cloud.points[cloud.valid].cpu().numpy()

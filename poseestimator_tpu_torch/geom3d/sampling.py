@@ -1,5 +1,6 @@
-"""Uniform sampling without replacement and voxel-grid downsampling
-(counterpart of ``random_sample``, ``_stratified_sample``,
+"""Uniform sampling without replacement, farthest-point sampling and
+voxel-grid downsampling (counterpart of ``random_sample``,
+``_stratified_sample``, ``farthest_point_sampling``, ``downsample_to``,
 ``voxel_down_sample`` and ``voxel_coverage`` in
 ``poseestimator_tpu/geom3d/sampling.py``).
 
@@ -53,7 +54,7 @@ def random_sample(cloud: PointCloud, n: int,
     score = torch.where(cloud.valid, g, torch.full_like(g, float("-inf")))
     vals, idx = torch.sort(score, descending=True, stable=True)
     vals, idx = vals[:n], idx[:n]
-    return PointCloud(points=cloud.points[idx], valid=torch.isfinite(vals))
+    return _gather(cloud, idx, torch.isfinite(vals))
 
 
 def _stratified_sample(cloud: PointCloud, n: int, g: torch.Tensor,
@@ -99,7 +100,55 @@ def _stratified_sample(cloud: PointCloud, n: int, g: torch.Tensor,
     # gather does (those rows are invalid either way)
     sel = torch.clamp(sidx[bsel, rank], max=N - 1)
     new_valid = (j < target) & torch.isfinite(sorted_score[bsel, rank])
-    return PointCloud(points=cloud.points[sel], valid=new_valid)
+    return _gather(cloud, sel, new_valid)
+
+
+def _gather(cloud: PointCloud, idx: torch.Tensor, valid: torch.Tensor) -> PointCloud:
+    """The rows ``idx`` of the cloud (points, normals, colours) under ``valid``."""
+    take = lambda a: None if a is None else a[idx]  # noqa: E731
+    return PointCloud(points=cloud.points[idx], valid=valid, normals=take(cloud.normals),
+                      colors=take(cloud.colors))
+
+
+def farthest_point_sampling(cloud: PointCloud, n: int,
+                            generator: Optional[torch.Generator] = None,
+                            gumbel: Optional[torch.Tensor] = None) -> PointCloud:
+    """Farthest-point sampling of ``n`` points: the start is the valid point
+    of highest Gumbel score (``gumbel`` (capacity,) injected, or drawn from
+    ``generator``), then each step takes the point farthest from all taken
+    so far (the first on ties). A taken point's distance is set to -inf and
+    invalid points start there, so once the valid points run out the steps
+    take index 0; the output marks ``min(n, count)`` rows valid. The steps
+    run on the device without a host read."""
+    pts = cloud.points
+    if gumbel is None:
+        gumbel = make_draws(cloud.capacity, cloud.capacity, generator, pts.device)[0]
+    neg_inf = torch.full_like(gumbel, float("-inf"))
+    first = torch.argmax(torch.where(cloud.valid, gumbel, neg_inf))
+    dist = torch.where(cloud.valid, torch.full_like(gumbel, float("inf")), neg_inf)
+    dist.index_fill_(0, first.view(1), float("-inf"))
+    sel = torch.zeros(n, dtype=torch.int64, device=pts.device)
+    sel[0] = first
+    for i in range(1, n):
+        # index tensors, not Python ints: no step waits for the device
+        d = torch.linalg.vector_norm(pts - pts.index_select(0, sel[i - 1:i]), dim=1)
+        dist = torch.minimum(dist, d)
+        nxt = torch.argmax(dist)
+        dist.index_fill_(0, nxt.view(1), float("-inf"))
+        sel[i] = nxt
+    new_valid = torch.arange(n, device=pts.device) < torch.clamp(cloud.count(), max=n)
+    return _gather(cloud, sel, new_valid)
+
+
+def downsample_to(cloud: PointCloud, n: int, method: str = "fps",
+                  generator: Optional[torch.Generator] = None, draws=None) -> PointCloud:
+    """``n`` points by farthest-point sampling (``draws``: the Gumbel start
+    scores) or by ``random_sample`` (``draws``: its ``(gumbel, uniform)``)."""
+    if method == "fps":
+        return farthest_point_sampling(cloud, n, generator, draws)
+    if method == "random":
+        return random_sample(cloud, n, generator, draws)
+    raise ValueError(f"unknown sampling method {method!r}")
 
 
 def _voxel_coords(points: torch.Tensor, valid: torch.Tensor, voxel_size) -> torch.Tensor:

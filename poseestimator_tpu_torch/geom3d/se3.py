@@ -24,6 +24,17 @@ def transform_points(T: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
     return pts @ T[..., :3, :3].transpose(-1, -2) + T[..., None, :3, 3]
 
 
+def angular_error(R_exp: torch.Tensor, R_est: torch.Tensor) -> torch.Tensor:
+    """Geodesic distance of two rotations in radians, as atan2 of the
+    skew part's norm over the cosine (arccos near 1 floors at ~1e-3 rad in
+    float32; atan2 is exact to rounding)."""
+    R = R_exp.T @ R_est
+    cos = (torch.trace(R) - 1.0) / 2.0
+    skew = torch.stack([R[2, 1] - R[1, 2], R[0, 2] - R[2, 0], R[1, 0] - R[0, 1]])
+    sin = 0.5 * torch.linalg.vector_norm(skew)
+    return torch.atan2(sin, cos).abs()
+
+
 def axis_angle_to_R(axis: torch.Tensor, angle) -> torch.Tensor:
     """Rodrigues' formula."""
     axis = axis / torch.clamp(torch.linalg.vector_norm(axis), min=1e-12)
@@ -65,6 +76,23 @@ def pca_axes(points: torch.Tensor, valid: torch.Tensor):
     flip = torch.where(torch.linalg.det(R) < 0, -1.0, 1.0).to(R.dtype)
     R = torch.cat([R[..., :2], R[..., 2:] * flip[..., None, None]], dim=-1)
     return R, torch.sqrt(torch.clamp(vals, min=0.0))
+
+
+def initial_align_centroid_pca(src, dst) -> torch.Tensor:
+    """Rigid T0 moving the centroid and principal axes of the cloud ``src``
+    onto those of ``dst``, each src axis signed to agree with its dst axis
+    and the third flipped for det = +1. Flipping an eigenvector's sign on
+    either side flips its dot product too, so T0 does not depend on the
+    eigensolver's column signs."""
+    c_s, c_d = src.centroid(), dst.centroid()
+    R_s, _ = pca_axes(src.points, src.valid)
+    R_d, _ = pca_axes(dst.points, dst.valid)
+    signs = torch.where((R_s * R_d).sum(0) < 0, -1.0, 1.0)
+    R_s_adj = R_s * signs[None, :]
+    flip = torch.where(torch.linalg.det(R_s_adj) < 0, -1.0, 1.0)
+    R_s_adj = torch.cat([R_s_adj[:, :2], R_s_adj[:, 2:] * flip], dim=1)
+    R0 = R_d @ R_s_adj.T
+    return make_T(R0, c_d - R0 @ c_s)
 
 
 def enforce_upright_pose_y_up(T: torch.Tensor, tol_deg: float = 30.0) -> torch.Tensor:

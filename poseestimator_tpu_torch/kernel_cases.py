@@ -361,3 +361,110 @@ def raster_batched_cases() -> dict[str, dict]:
             vertices=lv, faces=lfp, T=poses(8), origin=origins(poses(8), 192, 256), intr=intr,
             H=192, W=256),
     }
+
+
+# --- BOP scenes: the offline path's inputs ------------------------------------
+
+
+def bop_scene_poses(dist: float = 2.0, angles=(0.12, 0.2, 0.28)) -> list[np.ndarray]:
+    """The scene-sweep poses of the JAX package's BOP tests: a camera
+    ``dist`` (m) from the object along (1, 1, 1) looking at it, turned about
+    its optical axis by each angle (rad). (4, 4) float32 model-to-camera."""
+    d = np.ones(3) / np.sqrt(3.0)
+    T_cv = GL_TO_CV @ look_at(d * dist, [0.0, 0.0, 0.0], [0.0, 1.0, 0.0]).numpy()
+    out = []
+    for a in angles:
+        P = np.eye(4, dtype=np.float32)
+        P[:2, :2] = [[np.cos(a), -np.sin(a)], [np.sin(a), np.cos(a)]]
+        out.append((P @ T_cv).astype(np.float32))
+    return out
+
+
+def write_bop_scene(scene_dir: str, vertices: np.ndarray, faces: np.ndarray, intr: Intrinsics,
+                    poses, obj_id: int = 1, symmetries=None, device="cpu") -> None:
+    """A canonical BOP scene of one object: per pose (metres) the exact
+    triangle-raster depth (``depth/NNNNNN.png``, uint16 mm), its silhouette
+    (``mask_visib/NNNNNN_000000.png``) and a flat-coloured RGB
+    (``rgb/NNNNNN.png``), with ``scene_camera.json`` and ``scene_gt.json``
+    (mm); and ``models_info.json`` (BOP keeps it beside the CAD: pass it
+    with ``--models-info``) with the object's diameter and ``symmetries``
+    ((S, 4, 4), metres) as ``symmetries_discrete`` in mm.
+    The depth renders through K2 on a CUDA ``device``."""
+    import json
+    import os
+
+    import torch
+
+    from .render.raster import render_depth_mesh
+    from .utils.png import write_png
+
+    for sub in ("depth", "rgb", "mask_visib"):
+        os.makedirs(os.path.join(scene_dir, sub), exist_ok=True)
+    mesh_v = torch.from_numpy(np.asarray(vertices, np.float32)).to(device)
+    mesh_f = torch.from_numpy(pad_faces(faces, -(-len(faces) // 256) * 256).astype(np.int64))
+    mesh_f = mesh_f.to(device)
+    cam, gt = {}, {}
+    for i, T in enumerate(poses):
+        depth = render_depth_mesh(mesh_v, mesh_f, torch.from_numpy(np.asarray(T)).to(device),
+                                  intr, near=0.01, far=10.0).cpu().numpy()
+        stem = f"{i:06d}"
+        write_png(os.path.join(scene_dir, "depth", f"{stem}.png"),
+                  (depth * 1000.0).astype(np.uint16))
+        rgb = np.full((intr.height, intr.width, 3), 30, np.uint8)
+        rgb[depth > 0] = (200, 160, 90)
+        write_png(os.path.join(scene_dir, "rgb", f"{stem}.png"), rgb)
+        write_png(os.path.join(scene_dir, "mask_visib", f"{stem}_000000.png"),
+                  ((depth > 0) * 255).astype(np.uint8))
+        cam[str(i)] = {"cam_K": [intr.fx, 0, intr.cx, 0, intr.fy, intr.cy, 0, 0, 1],
+                       "depth_scale": 1.0}
+        T_mm = np.asarray(T, np.float64).copy()
+        T_mm[:3, 3] *= 1000.0
+        gt[str(i)] = [{"cam_R_m2c": T_mm[:3, :3].reshape(-1).tolist(),
+                       "cam_t_m2c": T_mm[:3, 3].tolist(), "obj_id": obj_id}]
+    with open(os.path.join(scene_dir, "scene_camera.json"), "w") as f:
+        json.dump(cam, f)
+    with open(os.path.join(scene_dir, "scene_gt.json"), "w") as f:
+        json.dump(gt, f)
+    v = np.asarray(vertices, np.float64)
+    info = {"diameter": float(np.linalg.norm(v.max(0) - v.min(0))) * 1000.0}
+    if symmetries is not None:
+        syms = []
+        for S in np.asarray(symmetries, np.float64):
+            S_mm = S.copy()
+            S_mm[:3, 3] *= 1000.0
+            syms.append(S_mm.reshape(-1).tolist())
+        info["symmetries_discrete"] = syms
+    with open(os.path.join(scene_dir, "models_info.json"), "w") as f:
+        json.dump({str(obj_id): info}, f)
+
+
+def nn_offline_cases(n_tpl: int = 10_000, n_down: int = 400, n_obs: int = 16_384,
+                     n_cand: int = 5, seed: int = 4) -> dict:
+    """K1 at the offline path's shapes, on a template-like cloud 2 m out
+    (``n_tpl`` points), its observation (``n_obs`` rows, about a tenth
+    valid as a masked frame's sample is) and a farthest-point-like subset
+    of it (``n_down``): the Chamfer ranking of ``n_cand`` candidate poses
+    (all candidates' points as one query set against the subset, and the
+    subset against each candidate as one batched problem) and the full
+    Chamfer (template against observation and back). Unbatched cases map
+    a name to (q, qv, d, dv); the batched one to the (B, N, 3) / (B, M, 3)
+    stack."""
+    rng = np.random.default_rng(seed)
+    tpl = _cloud(rng, n_tpl, scale=0.15, center=2.0)
+    obs = np.zeros((n_obs, 3), np.float32)
+    n_val = n_obs // 10
+    obs[:n_val] = _cloud(rng, n_val, scale=0.15, center=2.0)
+    obs_v = np.arange(n_obs) < n_val
+    down = obs[rng.choice(n_val, n_down, replace=False)]
+    cands = np.stack([tpl + rng.normal(size=3).astype(np.float32) * 0.01
+                      for _ in range(n_cand)])
+    ones = lambda n: np.ones(n, bool)  # noqa: E731
+    return {
+        f"rank {n_cand * n_tpl}x{n_down}": (cands.reshape(-1, 3), ones(n_cand * n_tpl), down,
+                                            ones(n_down)),
+        f"full {n_tpl}x{n_obs}": (tpl, ones(n_tpl), obs, obs_v),
+        f"full {n_obs}x{n_tpl}": (obs, obs_v, tpl, ones(n_tpl)),
+        f"rank batched {n_cand} x {n_down}x{n_tpl}": (
+            np.broadcast_to(down, (n_cand, n_down, 3)).copy(), np.ones((n_cand, n_down), bool),
+            cands, np.ones((n_cand, n_tpl), bool)),
+    }

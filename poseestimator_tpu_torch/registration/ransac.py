@@ -1,20 +1,21 @@
 """RANSAC over feature correspondences (counterpart of ``sample_triads``,
-``_triad_rt`` and ``ransac_registration`` in
+``_triad_rt``, ``ransac_registration`` and ``get_correspondences`` in
 ``poseestimator_tpu/registration/ransac.py``): a fixed budget of 3-point
 hypotheses drawn by one inverse-CDF pass over the valid matches, each
 checked by edge lengths (ratio 0.9) and sample distances, solved in closed
 form from the two triangles' frames and scored by its inlier count with an
 rmse tie-break; the winning sample is refit by the Horn solve.
 
-Every function takes a leading batch of problems (the search's templates)
-against one shared destination cloud. The uniform draws come from a
+Every function but the retry ladder ``get_correspondences`` takes a leading
+batch of problems (the search's templates) against one shared destination
+cloud. The uniform draws come from a
 ``torch.Generator`` or are injected, so a test can hand both packages the
 same numbers.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
@@ -132,3 +133,20 @@ def ransac_registration(src_pts: torch.Tensor, dst_pts: torch.Tensor, match_idx:
     return RansacResult(T=T, fitness=n_inl.to(torch.float32) / n_cand.to(torch.float32),
                         inlier_rmse=rmse, n_inliers=n_inl, corr_mask=corr, found=found,
                         triad=triad)
+
+
+def get_correspondences(src_pts: torch.Tensor, dst_pts: torch.Tensor, match_idx: torch.Tensor,
+                        match_valid: torch.Tensor, distance_threshold: float,
+                        n_iters: int = 4096, generator: Optional[torch.Generator] = None,
+                        uniforms: Optional[Sequence[torch.Tensor]] = None) -> RansacResult:
+    """The threshold retry ladder: RANSAC at ``distance_threshold``, then at
+    twice and at half of it, returning the first result with >= 3 inliers
+    (else the last). A rung runs only when the one before it failed, decided
+    on the host. ``uniforms``: the three rungs' (n_iters, 3) draws."""
+    rungs = (1.0, 2.0, 0.5)
+    for k, f in enumerate(rungs):
+        r = ransac_registration(src_pts, dst_pts, match_idx, match_valid,
+                                distance_threshold * f, n_iters=n_iters, generator=generator,
+                                uniforms=None if uniforms is None else uniforms[k])
+        if k == len(rungs) - 1 or int(r.n_inliers) >= 3:
+            return r

@@ -1,5 +1,6 @@
 """Triangle meshes on the host (counterpart of
-``poseestimator_tpu/render/mesh.py``; numpy): PLY loading, bounds,
+``poseestimator_tpu/render/mesh.py``; numpy): PLY loading (``load_geometry``
+takes a face-less PLY as a point set), bounds,
 area-weighted surface sampling, vertex-clustering decimation to a face
 budget, face padding, and the icosphere test mesh."""
 from __future__ import annotations
@@ -20,12 +21,9 @@ class TriangleMesh:
 
     @classmethod
     def load(cls, path: str) -> "TriangleMesh":
-        ply = read_ply(path)
-        if ply.faces is None:
+        m = load_geometry(path)
+        if not isinstance(m, TriangleMesh):
             raise ValueError(f"{path}: no faces, not a triangle mesh")
-        m = cls(vertices=ply.vertices, faces=ply.faces, vertex_normals=ply.normals)
-        if m.vertex_normals is None:
-            m.compute_vertex_normals()
         return m
 
     def compute_vertex_normals(self) -> None:
@@ -130,6 +128,19 @@ def pad_faces(faces: np.ndarray, capacity: int) -> np.ndarray:
     out = np.zeros((capacity, 3), np.int32)
     out[: len(faces)] = faces
     return out
+
+
+def load_geometry(path: str):
+    """A PLY as a ``TriangleMesh`` (vertex normals computed when the file
+    has none) when it has faces, else its ``PlyData`` point set: CAD models
+    and template clouds share the format."""
+    ply = read_ply(path)
+    if ply.faces is not None and len(ply.faces) > 0:
+        m = TriangleMesh(vertices=ply.vertices, faces=ply.faces, vertex_normals=ply.normals)
+        if m.vertex_normals is None:
+            m.compute_vertex_normals()
+        return m
+    return ply
 
 
 def make_icosphere(radius: float = 1.0, subdivisions: int = 3,

@@ -33,7 +33,8 @@ for call in (lambda: resolve_device(),
     except RuntimeError:
         raised.append(True)
 cpu_ok = resolve_device("cpu").type == "cpu"
-print(json.dumps({
+from poseestimator_tpu_torch.registration import native
+print(json.dumps({"native_touched": native._tried or native._lib is not None,
     "modules": names,
     "jax": sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
                   or m == "flax" or m.startswith("flax.")),
@@ -50,7 +51,10 @@ def test_port_imports_no_jax_and_needs_cuda_unless_cpu():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     res = json.loads(out.stdout.strip().splitlines()[-1])
-    assert "poseestimator_tpu_torch.pipeline.tracking" in res["modules"]
+    for m in ("pipeline.tracking", "pipeline.offline", "utils.bop", "apps.eval_bop",
+              "registration.native"):
+        assert f"poseestimator_tpu_torch.{m}" in res["modules"]
+    assert not res["native_touched"]  # importing builds and loads nothing
     assert res["jax"] == [], res["jax"]
     assert res["reference"] == [], res["reference"]
     assert res["cpu_ok"]

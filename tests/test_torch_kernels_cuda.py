@@ -10,6 +10,8 @@ CPU mode) and skip without one.
 This file imports no JAX, so it also runs where JAX is not installed:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_cuda.py
 """
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -286,3 +288,67 @@ def test_batched_track_step_does_not_depend_on_the_batch():
                               (res.rmse[k], alone.rmse), (res.cov[k], alone.cov)):
                 assert torch.equal(got, want)
     assert max(b8.n_iters) > min(b8.n_iters)  # the tracks exit at their own iterations
+
+
+OFFLINE_NN = sorted(kc.nn_offline_cases())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", OFFLINE_NN)
+def test_fused_nn_kernel_at_the_offline_shapes(name):
+    """K1 at the offline Chamfer's shapes (10k-point templates, the 16384-row
+    observation, the 400-point sample, five candidate poses), single and
+    batched over the candidates: bit for bit the plain version, and each
+    batched problem bit for bit its unbatched launch."""
+    _need_card()
+    q, qv, d, dv = (torch.from_numpy(a).cuda() for a in kc.nn_offline_cases()[name])
+    if q.dim() == 2:
+        _nn_same(q, qv, d, dv)
+        return
+    got = tnn.fused_nn_batched(q, qv, d, dv)
+    torch.cuda.synchronize()
+    want = tnn.fused_nn_batched_plain(q, qv, d, dv)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    for b in range(q.shape[0]):
+        one = tnn.fused_nn(q[b], qv[b], d[b], dv[b])
+        assert all(torch.equal(x[b], y) for x, y in zip(got, one))
+
+
+@pytest.mark.cuda
+def test_eval_bop_sweep_on_the_card_matches_the_cpu(tmp_path):
+    """The port's scene sweep (offline flavour) on a 160x120 three-frame
+    scene of the 0.3-scale L-shape 0.6 m out, once with ``device="cuda"``
+    and once with ``"cpu"``: the draws come from one host generator, so
+    the rows may differ only by rounding: ADD-S and MSSD within 0.5 mm,
+    MSPD within 0.5 px, VSD at tau = 10% within 0.05, the same AR."""
+    _need_card()
+    import os
+
+    from poseestimator_tpu_torch.apps import eval_bop
+    from poseestimator_tpu_torch.templates.creation import render_templates
+    from poseestimator_tpu_torch.utils.plyio import write_ply
+
+    v, f = kc.lshape_mesh(0.3)
+    cad = str(tmp_path / "obj_000001.ply")
+    write_ply(cad, v, faces=f)
+    render_templates(cad, str(tmp_path / "views"), device="cuda")
+    sd = str(tmp_path / "scene")
+    kc.write_bop_scene(sd, v, f, Intrinsics.from_fov(60.0, 160, 120), kc.bop_scene_poses(0.6),
+                       symmetries=kc.lshape_symmetry(0.3)[None], device="cuda")
+    base = ["--scene-dir", sd, "--ply", cad, "--templates", str(tmp_path / "views"),
+            "--target-points", "100", "--models-info", os.path.join(sd, "models_info.json")]
+    rows = {}
+    for dev in ("cuda", "cpu"):
+        out = str(tmp_path / f"{dev}.json")
+        eval_bop.run(eval_bop.build_parser().parse_args(
+            base + ["--device", dev, "--json-out", out]), quiet=True)
+        with open(out) as fh:
+            rows[dev] = json.load(fh)
+    assert len(rows["cuda"]["frames"]) == len(rows["cpu"]["frames"]) == 3
+    for rc, rp in zip(rows["cuda"]["frames"], rows["cpu"]["frames"]):
+        assert abs(rc["adds_mm"] - rp["adds_mm"]) <= 0.5, (rc, rp)
+        assert abs(rc["mssd_mm"] - rp["mssd_mm"]) <= 0.5, (rc, rp)
+        assert abs(rc["mspd_px"] - rp["mspd_px"]) <= 0.5, (rc, rp)
+        assert abs(rc["vsd_tau10"] - rp["vsd_tau10"]) <= 0.05, (rc, rp)
+    for k in ("ar_mssd", "ar_mspd"):
+        assert rows["cuda"]["summary"][k] == rows["cpu"]["summary"][k]
