@@ -64,7 +64,28 @@ port's two paths and checks their accuracy against ground truth:
   ADD against the nearer twin < 0.15 x diag, the exact clique on every
   scored template (a failed g++ build fails the phase). K1 is then held bit
   for bit against its plain version at the offline shapes, single and
-  batched over the five candidate poses, and timed.
+  batched over the five candidate poses, and timed;
+- the user-facing apps, driven through their ``main(argv)`` on the offline
+  phase's CAD and scene, with the port's ``Detector`` on seeded random
+  YOLO11n-seg weights saved as a ``.pt`` and loaded through ``--weights``
+  (no trained checkpoint exists here). The harness puts it in each app
+  module's place wrapped so that its forward runs on the card at confidence
+  0 and its top detection carries the true silhouette (the flat-coloured
+  image's object pixels, or the camera's depth > 0). One ``{"apps": ...}``
+  line each: the JPEG decoder's host ms on the 640x480 q95 4:2:0 frame of
+  ``tests/data``; (a1) ``main_image`` on scene frame 0 (ADD against the
+  nearer twin < 0.15 x diag, the overlay PNG); (a2) ``main_realsense
+  --source synthetic`` at the app's defaults (the 26-view database rendered
+  on first use, 2-frame init rollout, dense) for 40 frames, ADD-S mean
+  against the nearer twin < 1.5 cm with every frame after acquisition
+  tracked; (a3) the first 20 frames of that camera recorded by
+  ``camera/record.py`` and replayed, poses equal to the live run's (max abs
+  diff <= 1e-5); (a4) ``--multi`` for 10 frames, its one track acquired;
+  (a5) ``main_seibersdorf`` on a 300 000-point LiDAR frame (xyz + rpy
+  calibration, 5-term D), ADD-S < 0.1 x diag; (a6) ``eval_bop --mask
+  detector`` over the scene, bop_ar equal to ``--mask visib``'s. K1 and K2
+  at the apps' new shapes are then held against their plain versions and
+  timed.
 
 The search phase also runs one search twice from one generator state on
 observation (b) and demands bit-equal poses and rankings.
@@ -83,12 +104,16 @@ Python call timed by CUDA events, host cost included. The kernels line's
 
 Run from the repository root:
     python3 chip_smoke.py  [--out FILE.json] [--profile FILE.txt] [--offline-dir DIR]
+
+``--offline-dir`` also keeps the apps phase's files (weights, the 26-view
+database, the replay recording, the LiDAR frame).
 """
 from __future__ import annotations
 
 import argparse
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -114,6 +139,12 @@ MULTI_ROT = 0.008
 OFFLINE_POINTS = 400
 OFFLINE_PRODUCT_FRAMES = 2
 OFFLINE_ADD_DIAG = 0.15
+# the apps phase: frames of the synthetic session (a2), frames recorded and
+# replayed (a3), frames of the multi-object session (a4), the LiDAR frame's
+# points (a5) and its ADD-S gate (x diag)
+APPS_FRAMES, APPS_RECORD, APPS_MULTI = 40, 20, 10
+LIDAR_POINTS = 300_000
+LIDAR_ADDS_DIAG = 0.1
 # non-tensor float32 peak, HBM rate, and single instructions a second
 # (132 SMs x 128 lanes x 1.98 GHz): the rate of an FMA-free kernel
 H100 = {"f32_ops": 67e12, "bytes": 3.35e12, "lane_instr": 132 * 128 * 1.98e9}
@@ -1222,6 +1253,474 @@ def offline_phase(torch, dev, kc, fnn, rs, out_dir: str, profile_path=None) -> d
     return out
 
 
+def apps_phase(torch, dev, kc, fnn, rs, off_dir: str, visib: dict, card: str) -> dict:
+    """The user-facing apps on the card (see the module docstring), parts
+    (a1)-(a6), on the offline phase's L-shape CAD, template database and
+    scene in ``off_dir``; ``visib`` is that phase's ``--mask visib``
+    summary. The detector is the port's on seeded random weights, saved as
+    a ``.pt`` and loaded through each app's ``--weights``: the harness puts
+    it in each app module's place (``SilhouetteDetector``). Each part prints
+    one ``{"apps": ...}`` line; returns them, and the kernels' inputs by
+    shape (first call of each) for the shape checks."""
+    import argparse
+    import dataclasses
+
+    from poseestimator_tpu_torch.apps import eval_bop, main_image, main_realsense
+    from poseestimator_tpu_torch.apps import main_seibersdorf
+    from poseestimator_tpu_torch.camera.record import record
+    from poseestimator_tpu_torch.geom3d import knn as knn_mod
+    from poseestimator_tpu_torch.geom3d.camera import Intrinsics
+    from poseestimator_tpu_torch.geom3d.cloud import from_points
+    from poseestimator_tpu_torch.geom3d.metrics import add_metric
+    from poseestimator_tpu_torch.models.yolo.model import YOLO11Seg, init_random_
+    from poseestimator_tpu_torch.pipeline import detector as det_mod
+    from poseestimator_tpu_torch.pipeline import multi_tracking, tracking
+    from poseestimator_tpu_torch.render.mesh import TriangleMesh
+    from poseestimator_tpu_torch.templates import db as tdb
+    from poseestimator_tpu_torch.utils.jpeg import decode_jpeg
+    from poseestimator_tpu_torch.utils.png import read_png, write_png
+
+    cad, views = os.path.join(off_dir, "obj_000001.ply"), os.path.join(off_dir, "views")
+    scene = os.path.join(off_dir, "scene")
+    v, f = kc.lshape_mesh()
+    diag = float(np.linalg.norm(v.max(0) - v.min(0)))
+    S = kc.lshape_symmetry()
+    syms = [torch.eye(4, device=dev), torch.from_numpy(S).to(dev)]
+    pts = torch.from_numpy(TriangleMesh(vertices=v, faces=f).sample_points_uniformly(
+        2000, np.random.default_rng(1))[0]).to(dev)
+    intr = Intrinsics.from_fov(60.0, 640, 480)
+    weights = os.path.join(off_dir, "yolo11n_seg_seed0.pt")
+    torch.save(init_random_(YOLO11Seg(nc=5, scale="n"), torch.Generator().manual_seed(0))
+               .state_dict(), weights)
+    dev_s = str(dev)
+    RealDetector = det_mod.Detector
+
+    class SilhouetteDetector:
+        """The port's ``Detector`` on the seeded weights, its forward on the
+        card with the confidence gate at 0, keeping the top detection only:
+        class 0, its mask replaced by ``silhouette(image)`` and its box the
+        silhouette's. It has no ``model`` attribute, so the ``Tracker``
+        takes its detect + ``track_step`` path through this call;
+        ``detect_mask`` is ``Detector``'s own (the polygon round trip)."""
+
+        silhouette = None
+        made = 0
+
+        def __init__(self, weights, nc=5, scale="n", device="cuda", **kw):
+            self.inner = RealDetector(weights, nc=nc, scale=scale, device=device)
+            type(self).made += 1
+
+        def __call__(self, img, conf=0.25, iou=0.7, with_masks=True):
+            det, masks, boxes = self.inner(img, 0.0, iou, with_masks)
+            sil = torch.as_tensor(type(self).silhouette(img), device=dev).bool()
+            ys, xs = torch.nonzero(sil, as_tuple=True)
+            boxes = boxes.clone()
+            if len(xs):
+                boxes[0] = torch.stack([xs.min(), ys.min(), xs.max(), ys.max()]).float()
+            valid = torch.zeros_like(det.valid)
+            valid[0] = det.valid[0] & bool(len(xs))
+            classes = det.classes.clone()
+            classes[0] = 0
+            det = dataclasses.replace(det, valid=valid, classes=classes)
+            if masks is not None:
+                masks = masks.clone()
+                masks[0] = sil
+            return det, masks, boxes
+
+        detect_mask = RealDetector.detect_mask
+
+    colour_sil = lambda img: (np.asarray(img) != 30).any(-1)  # noqa: E731 (flat-coloured images)
+
+    def counts():
+        return {"k1": fnn.fused_nn_stats.launches, "k1_batched": fnn.fused_nn_batched_stats.launches,
+                "k2": rs.raster_stats.launches, "k2_batched": rs.raster_batched_stats.launches}
+
+    def zero():
+        fnn.fused_nn_stats.launches = fnn.fused_nn_batched_stats.launches = 0
+        rs.raster_stats.launches = rs.raster_batched_stats.launches = 0
+
+    def since(c0):
+        return {k: v - c0[k] for k, v in counts().items()}
+
+    def add_nearer_mm(T_est_mm, T_gt_mm):
+        model = from_points(v * 1000.0, device=dev)
+        Te = torch.as_tensor(T_est_mm, dtype=torch.float32, device=dev)
+        S_mm = S.astype(np.float64).copy()
+        S_mm[:3, 3] *= 1e3
+        return min(float(add_metric(Te, torch.as_tensor(T_gt_mm @ Sx, dtype=torch.float32,
+                                                         device=dev), model))
+                   for Sx in (np.eye(4), S_mm))
+
+    def emit(part: str, rec: dict) -> dict:
+        log(json.dumps({"apps": {"part": part, "card": card, **rec}}))
+        return rec
+
+    nn_in, nnb_in, k2_in, k2b_in = {}, {}, {}, {}
+    orig = {"nn": knn_mod.fused_nn, "nnb": knn_mod.fused_nn_batched, "k2": rs.raster,
+            "k2b": rs.raster_batched, "make": main_realsense.make_camera,
+            "step": tracking.Tracker.step, "mstep": multi_tracking.MultiTracker.step,
+            "render": tdb.render_templates, "det_mod": det_mod.Detector,
+            "image_reg": main_image.find_best_template_teaser,
+            "image_fm": main_image.frame_metrics, "image_ar": main_image.bop_average_recall,
+            "seiber_det": main_seibersdorf.Detector, "seiber_est": main_seibersdorf.PoseEstimator,
+            "seiber_sor": main_seibersdorf.remove_statistical_outlier,
+            "seiber_pts": main_seibersdorf.from_points, "rs_det": main_realsense.Detector,
+            "bop_det": eval_bop.Detector}
+    knn_mod.fused_nn = _first_call_recorder(torch, nn_in, orig["nn"],
+                                            lambda q, qv, d, dv: (q.shape[0], d.shape[0]))
+    knn_mod.fused_nn_batched = _first_call_recorder(
+        torch, nnb_in, orig["nnb"], lambda q, qv, d, dv: tuple(q.shape[:2]) + (d.shape[1],))
+    rs.raster = _first_call_recorder(torch, k2_in, orig["k2"],
+                                     lambda c, b, H, W: (H, W, c.shape[0]))
+    rs.raster_batched = _first_call_recorder(
+        torch, k2b_in, orig["k2b"], lambda c, b, H, W: (c.shape[0], H, W, c.shape[1]))
+    det_mod.Detector = main_seibersdorf.Detector = main_realsense.Detector = \
+        eval_bop.Detector = SilhouetteDetector
+    parts = {}
+    try:
+        # JPEG: the host cost of a BlenderProc-style 640x480 q95 4:2:0 frame
+        with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data",
+                               "frame_640x480_q95.jpg"), "rb") as fh:
+            blob = fh.read()
+        jms = []
+        for _ in range(3):
+            t = time.perf_counter()
+            img = decode_jpeg(blob)
+            jms.append((time.perf_counter() - t) * 1e3)
+        if img.shape != (480, 640, 3):
+            fail(f"apps: the JPEG frame decoded to {img.shape}")
+        parts["jpeg"] = emit("jpeg decode", {"bytes": len(blob), "host_ms": jms,
+                                             "host_ms_median": float(np.median(jms))})
+
+        # (a1) main_image on frame 0 of the BOP scene
+        SilhouetteDetector.silhouette = staticmethod(colour_sil)
+        rec = {}
+
+        def timed_reg(*a, **k):
+            torch.cuda.synchronize()
+            t0, c0 = time.perf_counter(), counts()
+            out = orig["image_reg"](*a, **k)
+            torch.cuda.synchronize()
+            rec.update(reg_ms=(time.perf_counter() - t0) * 1e3, reg_launches=since(c0),
+                       H=np.asarray(out[1]), chamfers=[m["score"] for m in out[3]])
+            return out
+
+        main_image.find_best_template_teaser = timed_reg
+        main_image.frame_metrics = lambda *a, **k: rec.setdefault("fm", orig["image_fm"](*a, **k))
+        main_image.bop_average_recall = lambda *a, **k: rec.setdefault(
+            "ar", orig["image_ar"](*a, **k))
+        overlay = os.path.join(off_dir, "a1_overlay.png")
+        zero()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        rc = main_image.main([
+            "--weights", weights, "--rgb", os.path.join(scene, "rgb", "000000.png"),
+            "--depth", os.path.join(scene, "depth", "000000.png"),
+            "--scene-camera", os.path.join(scene, "scene_camera.json"),
+            "--scene-gt", os.path.join(scene, "scene_gt.json"), "--templates", views,
+            "--ply", cad, "--models-info", os.path.join(scene, "models_info.json"),
+            "--headless", "--save-overlay", overlay, "--device", dev_s])
+        torch.cuda.synchronize()
+        main_ms, launches = (time.perf_counter() - t) * 1e3, counts()
+        with open(os.path.join(scene, "scene_gt.json")) as fh:
+            g = json.load(fh)["0"][0]
+        T_gt = np.eye(4)
+        T_gt[:3, :3] = np.asarray(g["cam_R_m2c"]).reshape(3, 3)
+        T_gt[:3, 3] = g["cam_t_m2c"]
+        T_est = rec["H"].astype(np.float64).copy()
+        T_est[:3, 3] *= 1e3
+        ov = read_png(overlay)
+        red = int(((ov[..., 0] == 255) & (ov[..., 1] == 0) & (ov[..., 2] == 0)).sum())
+        fm = rec["fm"]
+        a1 = emit("a1 main_image", {
+            "rc": rc, "chamfers": rec["chamfers"], "add_mm": fm["add_mm"],
+            "adds_mm": fm["adds_mm"], "mssd_mm": fm["mssd_mm"], "mspd_px": fm["mspd_px"],
+            **rec["ar"], "add_nearer_mm": add_nearer_mm(T_est, T_gt),
+            "add_gate_mm": OFFLINE_ADD_DIAG * diag * 1e3, "overlay_shape": list(ov.shape),
+            "overlay_red_px": red, "main_ms": main_ms, "registration_ms": rec["reg_ms"],
+            "launches": launches, "registration_launches": rec["reg_launches"]})
+        if rc != 0 or not a1["add_nearer_mm"] < a1["add_gate_mm"]:
+            fail(f"apps a1: rc {rc}, ADD {a1['add_nearer_mm']:.2f} mm against the nearer twin "
+                 f"(gate {a1['add_gate_mm']:.1f} mm)")
+        if ov.shape != read_png(os.path.join(scene, "depth", "000000.png")).shape + (3,) \
+                or red == 0 or launches["k1"] == 0:
+            fail(f"apps a1: overlay {ov.shape} with {red} red pixels, K1 {launches['k1']}")
+        parts["a1"] = a1
+
+        # (a2) main_realsense, the synthetic source at the app's defaults
+        cams, steps, builds = [], [], []
+
+        def make_cam(args, intr_fb):
+            cams.append(orig["make"](args, intr_fb))
+            return cams[-1]
+
+        def step(self):
+            torch.cuda.synchronize()
+            t0, c0 = time.perf_counter(), counts()
+            res = orig["step"](self)
+            torch.cuda.synchronize()
+            if res is not None:
+                gt = getattr(self.camera, "current_gt", None)
+                steps.append({"state": res.state, "ms": (time.perf_counter() - t0) * 1e3,
+                              "T": None if res.T_m2c is None else np.array(res.T_m2c),
+                              "gt": None if gt is None else np.array(gt), **since(c0),
+                              "registration_ms": res.timings.get("global_registration", 0.0)
+                              * 1e3})
+            return res
+
+        def render(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = orig["render"](*a, **k)
+            torch.cuda.synchronize()
+            builds.append({"s": time.perf_counter() - t0, "views": len(out)})
+            return out
+
+        main_realsense.make_camera = make_cam
+        tracking.Tracker.step = step
+        tdb.render_templates = render
+        SilhouetteDetector.silhouette = staticmethod(lambda img: cams[-1].depth > 0)
+        views_full = os.path.join(off_dir, "views_full")
+        shutil.rmtree(views_full, ignore_errors=True)  # rendered on first use, as users meet it
+        base = ["--weights", weights, "--pcd-path", views_full, "--cad-path", cad,
+                "--headless", "--device", dev_s]
+        zero()
+        t = time.perf_counter()
+        rc = main_realsense.main(base + ["--source", "synthetic", "--max-frames",
+                                         str(APPS_FRAMES)])
+        torch.cuda.synchronize()
+        main_ms = (time.perf_counter() - t) * 1e3
+        live = list(steps)
+        states = "".join(r["state"][0] for r in live)
+        first = states.find("i")
+        tracked = [r for r in live[first + 1:]] if first >= 0 else []
+        adds = [adds_sym_cm(torch, pts, torch.from_numpy(r["T"].astype(np.float32)).to(dev),
+                            torch.from_numpy(r["gt"]).to(dev), syms)[0] for r in tracked]
+        init = live[first] if first >= 0 else {}
+        a2 = emit("a2 main_realsense synthetic", {
+            "rc": rc, "frames": len(live), "states": states, "main_ms": main_ms,
+            "db_build": builds, "first_pose_ms": init.get("ms"),
+            "init_registration_ms": init.get("registration_ms"),
+            "k1_per_init": init.get("k1"), "k1_batched_per_init": init.get("k1_batched"),
+            "k2_per_init": init.get("k2"),
+            "adds_mean_cm": float(np.mean(adds)) if adds else None,
+            "adds_p95_cm": float(np.percentile(adds, 95)) if adds else None,
+            "adds_budget_cm": ADDS_BUDGET_CM,
+            "step_ms_median": float(np.median([r["ms"] for r in tracked])) if tracked else None,
+            "k1_per_tracked_frame": float(np.mean([r["k1"] for r in tracked])) if tracked else 0,
+            "k2_per_tracked_frame": float(np.mean([r["k2"] for r in tracked])) if tracked else 0})
+        if rc != 0 or first < 0 or not tracked or any(r["state"] != "track" for r in tracked):
+            fail(f"apps a2: rc {rc}, states {states}: every frame after acquisition must track")
+        if not a2["adds_mean_cm"] < ADDS_BUDGET_CM:
+            fail(f"apps a2: ADD-S mean {a2['adds_mean_cm']:.4f} cm >= {ADDS_BUDGET_CM} cm")
+        if not builds or builds[0]["views"] != 26 or a2["k1_per_tracked_frame"] == 0 \
+                or a2["k2_per_tracked_frame"] == 0:
+            fail(f"apps a2: DB builds {builds}, K1 {a2['k1_per_tracked_frame']} and K2 "
+                 f"{a2['k2_per_tracked_frame']} per tracked frame")
+        parts["a2"] = a2
+
+        # (a3) the first frames of the same camera recorded, then replayed
+        rec_dir = os.path.join(off_dir, "replay")
+        ns = argparse.Namespace(source="synthetic", cad_path=cad, device=dev_s)
+        n_rec = record(orig["make"](ns, intr), rec_dir, APPS_RECORD, verbose=False)
+        steps.clear()
+        zero()
+        rc = main_realsense.main(base + ["--source", f"replay:{rec_dir}"])
+        replay = list(steps)
+        diffs = [float(np.abs(a["T"] - b["T"]).max()) for a, b in zip(live, replay)]
+        a3 = emit("a3 record and replay", {
+            "rc": rc, "recorded": n_rec, "frames": len(replay),
+            "states": "".join(r["state"][0] for r in replay),
+            "max_abs_pose_diff": max(diffs) if diffs else None, "pose_diffs": diffs})
+        if rc != 0 or n_rec != APPS_RECORD or len(replay) < 2 or not max(diffs) <= 1e-5:
+            steps.clear()  # is the live session itself repeatable?
+            main_realsense.main(base + ["--source", "synthetic", "--max-frames",
+                                        str(len(replay))])
+            again = [float(np.abs(a["T"] - b["T"]).max()) for a, b in zip(live, steps)]
+            fail(f"apps a3: rc {rc}, {n_rec} frames recorded, {len(replay)} replayed, pose "
+                 f"differences {diffs}; a second live session differs from the first by "
+                 f"{again}")
+        parts["a3"] = a3
+
+        # (a4) --multi on the synthetic source
+        msteps = []
+
+        def mstep(self):
+            c0 = counts()
+            res = orig["mstep"](self)
+            if res is not None:
+                msteps.append({"tracks": len(res.tracks), "detections": res.n_detections,
+                               **since(c0)})
+            return res
+
+        multi_tracking.MultiTracker.step = mstep
+        zero()
+        t = time.perf_counter()
+        rc = main_realsense.main(base + ["--source", "synthetic", "--multi", "--max-frames",
+                                         str(APPS_MULTI)])
+        torch.cuda.synchronize()
+        a4 = emit("a4 main_realsense --multi", {
+            "rc": rc, "frames": len(msteps), "tracks": [r["tracks"] for r in msteps],
+            "main_ms": (time.perf_counter() - t) * 1e3, "launches": counts()})
+        if rc != 0 or not msteps or msteps[-1]["tracks"] != 1:
+            fail(f"apps a4: rc {rc}, tracks per frame {a4['tracks']}")
+        parts["a4"] = a4
+
+        # (a5) main_seibersdorf on a LiDAR frame
+        parts["a5"] = seibersdorf_part(torch, dev, kc, rs, main_seibersdorf, off_dir, cad,
+                                       views, weights, intr, pts, syms, diag, orig, counts,
+                                       zero, emit, SilhouetteDetector, colour_sil, write_png)
+
+        # (a6) eval_bop --mask detector over the scene
+        SilhouetteDetector.silhouette = staticmethod(colour_sil)
+        SilhouetteDetector.made = 0
+        zero()
+        t = time.perf_counter()
+        det = eval_bop.run(eval_bop.build_parser().parse_args([
+            "--scene-dir", scene, "--ply", cad, "--templates", views, "--mask", "detector",
+            "--weights", weights, "--target-points", str(OFFLINE_POINTS), "--device", dev_s,
+            "--models-info", os.path.join(scene, "models_info.json")]), quiet=True)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+        launches = counts()
+        d1 = SilhouetteDetector(weights, device=dev)
+        px = []
+        for k in range(3):
+            img = read_png(os.path.join(scene, "rgb", f"{k:06d}.png"))[..., ::-1]
+            m = d1.detect_mask(np.ascontiguousarray(img))[0]["mask"]
+            px.append(int((m != read_png(os.path.join(scene, "mask_visib",
+                                                      f"{k:06d}_000000.png"))).sum()))
+        a6 = emit("a6 eval_bop --mask detector", {
+            "summary": det, "bop_ar_visib": visib["bop_ar"], "mask_px_differing": px,
+            "detectors_made": SilhouetteDetector.made - 1, "wall_ms_per_frame": wall / 3,
+            "launches": launches})
+        if det is None or det["frames"] != 3 or det["bop_ar"] != visib["bop_ar"] \
+                or SilhouetteDetector.made != 2:
+            fail(f"apps a6: --mask detector summary {det} against --mask visib bop_ar "
+                 f"{visib['bop_ar']}, mask pixels differing {px}")
+        parts["a6"] = a6
+    finally:
+        knn_mod.fused_nn, knn_mod.fused_nn_batched = orig["nn"], orig["nnb"]
+        rs.raster, rs.raster_batched = orig["k2"], orig["k2b"]
+        main_realsense.make_camera = orig["make"]
+        tracking.Tracker.step, multi_tracking.MultiTracker.step = orig["step"], orig["mstep"]
+        tdb.render_templates = orig["render"]
+        det_mod.Detector = orig["det_mod"]
+        main_seibersdorf.Detector, main_realsense.Detector = orig["seiber_det"], orig["rs_det"]
+        eval_bop.Detector = orig["bop_det"]
+        main_seibersdorf.PoseEstimator = orig["seiber_est"]
+        main_seibersdorf.remove_statistical_outlier = orig["seiber_sor"]
+        main_seibersdorf.from_points = orig["seiber_pts"]
+        main_image.find_best_template_teaser = orig["image_reg"]
+        main_image.frame_metrics = orig["image_fm"]
+        main_image.bop_average_recall = orig["image_ar"]
+    return {"parts": parts, "nn_inputs": nn_in, "nn_batched_inputs": nnb_in,
+            "raster_inputs": k2_in, "raster_batched_inputs": k2b_in}
+
+
+def seibersdorf_part(torch, dev, kc, rs, app, off_dir, cad, views, weights, intr, pts, syms,
+                     diag, orig, counts, zero, emit, SilhouetteDetector, colour_sil,
+                     write_png) -> dict:
+    """(a5): a LiDAR frame of LIDAR_POINTS points (a ground plane under the
+    L-shape, its sampled surface and uniform clutter, as a LiDAR beside the
+    camera sees them: points the object hides from the camera are
+    dropped), in a LiDAR frame given as xyz + rpy in a calib.yaml written as
+    text with a 5-term D; the image the object's flat-coloured render."""
+    from poseestimator_tpu_torch.geom3d.se3 import euler_xyz_to_R
+    from poseestimator_tpu_torch.render.mesh import TriangleMesh
+    from poseestimator_tpu_torch.utils.plyio import write_ply
+
+    v, f = kc.lshape_mesh()
+    T_m2c = kc.bop_scene_poses()[0].astype(np.float64)
+    depth = rs.render_depth_mesh(torch.from_numpy(v).to(dev),
+                                 torch.from_numpy(f.astype(np.int64)).to(dev),
+                                 torch.from_numpy(T_m2c.astype(np.float32)).to(dev), intr,
+                                 near=0.01, far=10.0).cpu().numpy()
+    img = np.full((intr.height, intr.width, 3), 30, np.uint8)
+    img[depth > 0] = (200, 160, 90)  # RGB
+    write_png(os.path.join(off_dir, "a5_image.png"), img)
+    rng = np.random.default_rng(5)
+    n = int(LIDAR_POINTS * 1.3)
+    surf, _ = TriangleMesh(vertices=v, faces=f).sample_points_uniformly(n // 5, rng)
+    y0 = float(v[:, 1].min())
+    ground = np.stack([rng.uniform(-3, 3, n // 2), np.full(n // 2, y0),
+                       rng.uniform(-3, 3, n // 2)], -1)
+    clutter = rng.uniform(-3, 3, (n - n // 5 - n // 2, 3))
+    model = np.concatenate([surf, ground, clutter])
+    cam = model @ T_m2c[:3, :3].T + T_m2c[:3, 3]
+    uv = cam[:, :2] / np.maximum(cam[:, 2:3], 1e-6) * [intr.fx, intr.fy] + [intr.cx, intr.cy]
+    u, w = np.round(uv[:, 0]).astype(int), np.round(uv[:, 1]).astype(int)
+    inside = (cam[:, 2] > 0.01) & (u >= 0) & (u < intr.width) & (w >= 0) & (w < intr.height)
+    dz = np.full(len(cam), np.inf)
+    dz[inside] = depth[w[inside], u[inside]]
+    hidden = inside & (dz > 0) & (cam[:, 2] > dz + 0.005)
+    keep = np.flatnonzero(~hidden)
+    keep = keep[rng.permutation(len(keep))[:LIDAR_POINTS]]
+    if len(keep) != LIDAR_POINTS:
+        fail(f"apps a5: only {len(keep)} LiDAR points after the visibility cut")
+    rpy, xyz = [0.02, -0.03, 0.01], [0.12, -0.35, 0.05]  # the LiDAR's mount (camera -> LiDAR)
+    T = np.eye(4)
+    T[:3, :3] = euler_xyz_to_R(rpy).numpy().astype(np.float64)
+    T[:3, 3] = xyz
+    lidar = cam[keep] @ T[:3, :3].T + T[:3, 3]
+    write_ply(os.path.join(off_dir, "a5_lidar.ply"), lidar.astype(np.float32))
+    K = intr.K.astype(np.float64)
+    fmt = lambda a: "[" + ", ".join(repr(float(x)) for x in np.ravel(a)) + "]"  # noqa: E731
+    with open(os.path.join(off_dir, "a5_calib.yaml"), "w") as fh:
+        fh.write(f"# camera -> LiDAR extrinsics of the a5 frame\nK: {fmt(K)}\n"
+                 f"D: {fmt([1e-3, -5e-4, 0.0, 0.0, 0.0])}\nxyz: {fmt(xyz)}\nrpy: {fmt(rpy)}\n")
+    stages, masked, est_out = {}, [], []
+
+    def timed(name, fn):
+        def wrapped(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            stages[name] = stages.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
+            return out
+        return wrapped
+
+    class TimedEstimator(orig["seiber_est"]):
+        def __init__(self, *a, **k):
+            timed("estimator build", super().__init__)(*a, **k)
+
+        def find_best_template_teaser(self, *a, **k):
+            out = timed("template search", super().find_best_template_teaser)(*a, **k)
+            est_out.append(out[0])
+            return out
+
+    SilhouetteDetector.silhouette = staticmethod(colour_sil)
+    SilhouetteDetector.detect_mask = timed("detect_mask", SilhouetteDetector.detect_mask)
+    app.PoseEstimator = TimedEstimator
+    app.remove_statistical_outlier = timed("outlier removal", orig["seiber_sor"])
+    app.from_points = lambda p, **k: (masked.append(len(p)), orig["seiber_pts"](p, **k))[1]
+    overlay = os.path.join(off_dir, "a5_overlay.png")
+    zero()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    rc = app.main(["--weights", weights, "--ply-path", views, "--cad-path", cad,
+                   "--image", os.path.join(off_dir, "a5_image.png"),
+                   "--cloud", os.path.join(off_dir, "a5_lidar.ply"),
+                   "--calib", os.path.join(off_dir, "a5_calib.yaml"), "--headless",
+                   "--save-overlay", overlay, "--device", str(dev)])
+    torch.cuda.synchronize()
+    main_ms = (time.perf_counter() - t) * 1e3
+    SilhouetteDetector.detect_mask = orig["det_mod"].detect_mask
+    T_est = torch.from_numpy(np.asarray(est_out[0], np.float32)).to(dev)
+    adds, twin = adds_sym_cm(torch, pts, T_est, torch.from_numpy(T_m2c.astype(np.float32))
+                             .to(dev), syms)
+    a5 = emit("a5 main_seibersdorf", {
+        "rc": rc, "lidar_points": LIDAR_POINTS, "masked_cloud": masked[0] if masked else None,
+        "adds_cm": adds, "nearer": "twin" if twin else "identity",
+        "adds_gate_cm": LIDAR_ADDS_DIAG * diag * 100.0, "main_ms": main_ms, "stage_ms": stages,
+        "launches": counts()})
+    if rc != 0 or not adds < a5["adds_gate_cm"]:
+        fail(f"apps a5: rc {rc}, ADD-S {adds:.3f} cm against the nearer twin >= "
+             f"{a5['adds_gate_cm']:.2f} cm")
+    return a5
+
+
 def check_b_independence(torch, trk, args, kw, draws, res) -> dict:
     """Each track of a recorded batched step run again alone through the
     batched step (B = 1) and through the unbatched ``track_step`` on its
@@ -1398,6 +1897,16 @@ def profile_calls(torch, fn, n: int, path: str, unit: str) -> dict:
     return out
 
 
+def apps_launches(parts: dict, k: str) -> dict:
+    """A kernel's launches in each apps part (``k``: "k1" or "k2"; the
+    batched entry beside it)."""
+    out = {p: {k: parts[p]["launches"][k], f"{k}_batched": parts[p]["launches"][f"{k}_batched"]}
+           for p in ("a1", "a4", "a5", "a6")}
+    out["a2"] = {f"{k}_per_tracked_frame": parts["a2"][f"{k}_per_tracked_frame"],
+                 f"{k}_per_init": parts["a2"][f"{k}_per_init"]}
+    return out
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--out", help="also write the JSON summary to this file")
@@ -1550,9 +2059,20 @@ def main(argv=None) -> int:
         multi = multi_phase(torch, dev, kc, fnn, rs, tmp, profile_path=(
             "{0}_multi{1}".format(*os.path.splitext(args.profile)) if args.profile else None))
         # 9. the offline path and the BOP scene sweep
-        offline = offline_phase(torch, dev, kc, fnn, rs,
-                                args.offline_dir or os.path.join(tmp, "offline"), profile_path=(
+        off_dir = args.offline_dir or os.path.join(tmp, "offline")
+        offline = offline_phase(torch, dev, kc, fnn, rs, off_dir, profile_path=(
             "{0}_offline{1}".format(*os.path.splitext(args.profile)) if args.profile else None))
+        # 10. the user-facing apps on the offline phase's CAD, database and scene
+        apps = apps_phase(torch, dev, kc, fnn, rs, off_dir, offline["offline"]["summary"], card)
+    # the apps' kernel shapes that no earlier phase gave (checked below)
+    new = lambda got, *seen: {k: v for k, v in got.items()  # noqa: E731
+                              if not any(k in d for d in seen)}
+    apps_nn = new(apps.pop("nn_inputs"), search["nn_inputs"], tracker["nn_inputs"],
+                  offline["nn_inputs"])
+    apps_k2 = new(apps.pop("raster_inputs"), search["raster_inputs"], tracker["raster_inputs"])
+    apps_nnb = new(apps.pop("nn_batched_inputs"), multi["nn_inputs"],
+                   offline["nn_batched_inputs"])
+    apps_k2b = new(apps.pop("raster_batched_inputs"), multi["raster_inputs"])
     search_k = check_search_shapes(torch, fnn, rs, search.pop("nn_inputs"),
                                    search.pop("raster_inputs"))
     tracker_k = check_search_shapes(torch, fnn, rs, tracker.pop("nn_inputs"),
@@ -1562,6 +2082,8 @@ def main(argv=None) -> int:
     offline_k = check_search_shapes(torch, fnn, rs, offline.pop("nn_inputs"), {},
                                     where="the offline path's")
     offline_kb = check_batched_shapes(torch, fnn, rs, offline.pop("nn_batched_inputs"), {})
+    apps_k = check_search_shapes(torch, fnn, rs, apps_nn, apps_k2, where="the apps'")
+    apps_kb = check_batched_shapes(torch, fnn, rs, apps_nnb, apps_k2b)
 
     if args.profile:
         # the first 5 frames of the sequence again from the start pose
@@ -1584,7 +2106,7 @@ def main(argv=None) -> int:
         "adds_mean_cm": adds_mean, "adds_max_cm": float(max(adds)),
         "k1_launches": k1_launches, "k2_launches": k2_launches,
         "search": search, "tracker": tracker["parts"], "icp_options": icp_options,
-        "multi": multi["parts"], "offline": offline,
+        "multi": multi["parts"], "offline": offline, "apps": apps["parts"],
     }
     log(f"track step alone: {track_ms:.3f} ms; one host read: {read_us:.1f} us")
     k2_main = k2["shapes"][k2["main"]]
@@ -1600,7 +2122,8 @@ def main(argv=None) -> int:
          "other_shapes": {"16384x16384": k1["16384x16384"],
                           **{f"search {k}": v for k, v in search_k["K1"].items()},
                           **{f"tracker {k}": v for k, v in tracker_k["K1"].items()},
-                          **{f"offline {k}": v for k, v in offline_k["K1"].items()}},
+                          **{f"offline {k}": v for k, v in offline_k["K1"].items()},
+                          **{f"apps {k}": v for k, v in apps_k["K1"].items()}},
          "search_launches": {n: r["k1_launches"] for n, r in search["scenes"].items()},
          "offline_launches": {n: {"k1_launches": offline[n]["k1_launches"],
                                   "k1_per_frame": offline[n]["k1_per_frame"]}
@@ -1608,6 +2131,7 @@ def main(argv=None) -> int:
          "tracker_launches": {p["part"]: {k: p[k] for k in (
              "k1_launches", "k1_per_tracked_frame", "k1_per_init")}
              for p in tracker["parts"].values()},
+         "apps_launches": apps_launches(apps["parts"], "k1"),
          "cost_model": k1["cost_model"]},
         {"name": "K2 raster", "route": "cuda",
          "source": "poseestimator_tpu_torch/csrc/raster.cu",
@@ -1621,11 +2145,13 @@ def main(argv=None) -> int:
                                  "bound_by": v["bound"][1]}
                              for k, v in k2["shapes"].items() if k != k2["main"]},
                           **{f"search {k}": v for k, v in search_k["K2"].items()},
-                          **{f"tracker {k}": v for k, v in tracker_k["K2"].items()}},
+                          **{f"tracker {k}": v for k, v in tracker_k["K2"].items()},
+                          **{f"apps {k}": v for k, v in apps_k["K2"].items()}},
          "search_launches": {n: r["k2_launches"] for n, r in search["scenes"].items()},
          "tracker_launches": {p["part"]: {k: p[k] for k in (
              "k2_launches", "k2_per_tracked_frame", "k2_per_init")}
-             for p in tracker["parts"].values()}},
+             for p in tracker["parts"].values()},
+         "apps_launches": apps_launches(apps["parts"], "k2")},
     ]}
     mparts = [multi["parts"][k] for k in ("m1", "m2", "m3")]
     k1b_offline = {"offline_launches": {n: {k: offline[n][k] for k in (
@@ -1633,10 +2159,12 @@ def main(argv=None) -> int:
     for name, key, source, replaces, shapes, extra in (
             ("K1 fused_nn batched", "k1_launches", "poseestimator_tpu_torch/csrc/fused_nn.cu",
              "poseestimator_tpu/geom3d/pallas_nn.py:30",
-             {**multi_k["K1"], **{f"offline {k}": v for k, v in offline_kb["K1"].items()}},
+             {**multi_k["K1"], **{f"offline {k}": v for k, v in offline_kb["K1"].items()},
+              **{f"apps {k}": v for k, v in apps_kb["K1"].items()}},
              k1b_offline),
             ("K2 raster batched", "k2_launches", "poseestimator_tpu_torch/csrc/raster.cu",
-             "poseestimator_tpu/render/raster.py:134", multi_k["K2"], {})):
+             "poseestimator_tpu/render/raster.py:134",
+             {**multi_k["K2"], **{f"apps {k}": v for k, v in apps_kb["K2"].items()}}, {})):
         # the main shape: the largest batch of the 640x480 part
         main = max((k for k in shapes if k.startswith("B=")),
                    key=lambda k: int(k.split(" ")[0][2:]))
@@ -1660,7 +2188,7 @@ def main(argv=None) -> int:
     log(f"card: {card}")
     log(json.dumps({k: v for k, v in summary.items() if k not in (
         "frame_ms", "icp_n_iters", "kernels", "search", "tracker", "multi", "icp_options",
-        "offline")}))
+        "offline", "apps")}))
     log(json.dumps({"search": search}))
     log(json.dumps(kernels_line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

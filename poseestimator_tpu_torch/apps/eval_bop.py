@@ -12,9 +12,10 @@ single-directory form (``NNNNNN.{png,jpg}``); frames come from the
 Mask sources (--mask):
   visib     the ground-truth visible mask (``mask_visib/``, BOP's own)
   depthpos  depth > 0 (single-object synthetic scenes)
-  detector  the detector's mask: not ported yet (it needs the cv2-free
-            polygon round trip of ``detect_mask``), raises
-            NotImplementedError
+  detector  the YOLO detector's mask (``--weights``): one ``Detector`` for
+            the sweep, and per frame ``detect_mask`` on the colour image,
+            the first detection of ``--class-id`` (its polygon round trip:
+            the largest outer border, filled); an empty mask when none
 
 Registration (--registration): ``offline``, the single-frame flavour of
 ``pipeline/offline.py``; ``product``, the template search of
@@ -29,8 +30,7 @@ Run:
         [--json-out out.json]
 
 Prints one JSON line per frame and a summary line with the scene's AR.
-Colour images are read only as PNG (a JPEG frame is registered without
-colours, which nothing downstream uses).
+Colour images are read as PNG or JPEG (``utils/image.read_image``).
 """
 from __future__ import annotations
 
@@ -46,9 +46,11 @@ import torch
 from ..device import resolve_device
 from ..geom3d.camera import Intrinsics
 from ..geom3d.cloud import from_points
+from ..pipeline.detector import Detector
 from ..pipeline.offline import find_best_template_teaser
 from ..pipeline.pose_estimator import PoseEstimator
 from ..utils import bop
+from ..utils.image import IMREAD_COLOR, read_image
 from ..utils.plyio import read_ply
 from ..utils.png import read_png
 
@@ -59,6 +61,9 @@ def build_parser():
     p.add_argument("--ply", required=True, help="CAD model (.ply)")
     p.add_argument("--templates", required=True, help="template views dir")
     p.add_argument("--mask", default="visib", choices=["visib", "depthpos", "detector"])
+    p.add_argument("--weights", default=None, help="detector weights for --mask detector")
+    p.add_argument("--nc", type=int, default=5, help="the detector's class count")
+    p.add_argument("--class-id", type=int, default=0, help="the object's detector class")
     p.add_argument("--obj-index", type=int, default=0,
                    help="GT instance index within each frame")
     p.add_argument("--target-points", type=int, default=400)
@@ -112,11 +117,12 @@ def _margin(cands, verts_mm) -> float | None:
 def run(args, quiet: bool = False):
     """Sweep the scene; returns the summary dict (None when no frame was
     evaluated)."""
-    if args.mask == "detector":
-        raise NotImplementedError(
-            "--mask detector needs the detector's mask, whose polygon round trip "
-            "(detect_mask) has no cv2-free port yet; use --mask visib or depthpos")
     dev = resolve_device(args.device)
+    detector = None
+    if args.mask == "detector":
+        if not args.weights:
+            raise SystemExit("--mask detector needs --weights")
+        detector = Detector(args.weights, nc=args.nc, device=dev)
     scene = args.scene_dir
     gt_path = os.path.join(scene, "scene_gt.json")
     cam_path = os.path.join(scene, "scene_camera.json")
@@ -165,8 +171,16 @@ def run(args, quiet: bool = False):
             mask = read_png(mp)
             if mask.ndim != 2:
                 raise ValueError(f"{mp}: a mask must be a greyscale PNG")
-        else:
+        elif args.mask == "depthpos":
             mask = ((depth_raw > 0) * 255).astype(np.uint8)
+        else:
+            if rgb_path is None:
+                print(f"frame {k}: no colour image for the detector", file=sys.stderr)
+                continue
+            img = read_image(rgb_path, IMREAD_COLOR)
+            hits = [r["mask"] for r in detector.detect_mask(img, class_id=args.class_id, conf=0.7)
+                    if r["class_id"] == args.class_id]
+            mask = hits[0] if hits else np.zeros(img.shape[:2], np.uint8)
 
         cloud, K = bop.get_pointcloud(depth_path, rgb_path, cam_path, mask, frame_id=int(k),
                                       device=dev)

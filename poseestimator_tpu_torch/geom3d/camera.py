@@ -100,3 +100,25 @@ def project_points(points: torch.Tensor, K: torch.Tensor, T_m2c: torch.Tensor):
     u = K[0, 0] * pc[..., 0] / zs + K[0, 2]
     v = K[1, 1] * pc[..., 1] / zs + K[1, 2]
     return torch.stack([u, v], dim=-1), in_front
+
+
+def project_points_distorted(points: torch.Tensor, K: torch.Tensor, D: torch.Tensor,
+                             T: torch.Tensor):
+    """Brown-Conrady projection of (N, 3) points under the (4, 4) pose
+    ``T``, as ``cv2.projectPoints`` with a 4-, 5- or 8-term ``D`` (k1, k2,
+    p1, p2[, k3[, k4, k5, k6]]): ``(uv (N, 2), in_front (N,) bool)``."""
+    pc = points @ T[:3, :3].T + T[:3, 3]
+    z = pc[:, 2]
+    in_front = z > 0.0
+    zs = torch.where(z.abs() > 1e-12, z, torch.ones_like(z))
+    xp, yp = pc[:, 0] / zs, pc[:, 1] / zs
+    d = torch.zeros(8, dtype=points.dtype, device=points.device)
+    D = D.reshape(-1).to(points.dtype)[:8]
+    d[:D.numel()] = D
+    k1, k2, p1, p2, k3, k4, k5, k6 = d
+    r2 = xp * xp + yp * yp
+    r4, r6 = r2 * r2, r2 * r2 * r2
+    radial = (1 + k1 * r2 + k2 * r4 + k3 * r6) / (1 + k4 * r2 + k5 * r4 + k6 * r6)
+    x2 = xp * radial + 2 * p1 * xp * yp + p2 * (r2 + 2 * xp * xp)
+    y2 = yp * radial + p1 * (r2 + 2 * yp * yp) + 2 * p2 * xp * yp
+    return torch.stack([K[0, 0] * x2 + K[0, 2], K[1, 1] * y2 + K[1, 2]], dim=-1), in_front

@@ -3,6 +3,7 @@ Float32 throughout; matrix products run in full float32 under the numeric
 policy of ``device.py``."""
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -33,6 +34,28 @@ def angular_error(R_exp: torch.Tensor, R_est: torch.Tensor) -> torch.Tensor:
     skew = torch.stack([R[2, 1] - R[1, 2], R[0, 2] - R[2, 0], R[1, 0] - R[0, 1]])
     sin = 0.5 * torch.linalg.vector_norm(skew)
     return torch.atan2(sin, cos).abs()
+
+
+def rot_x(a) -> torch.Tensor:
+    c, s = float(np.cos(a)), float(np.sin(a))
+    return torch.tensor([[1.0, 0.0, 0.0], [0.0, c, -s], [0.0, s, c]], dtype=torch.float32)
+
+
+def rot_y(a) -> torch.Tensor:
+    c, s = float(np.cos(a)), float(np.sin(a))
+    return torch.tensor([[c, 0.0, s], [0.0, 1.0, 0.0], [-s, 0.0, c]], dtype=torch.float32)
+
+
+def rot_z(a) -> torch.Tensor:
+    c, s = float(np.cos(a)), float(np.sin(a))
+    return torch.tensor([[c, -s, 0.0], [s, c, 0.0], [0.0, 0.0, 1.0]], dtype=torch.float32)
+
+
+def euler_xyz_to_R(rpy) -> torch.Tensor:
+    """Extrinsic x-y-z Euler angles (roll, pitch, yaw) -> R = Rz Ry Rx, as
+    ``scipy.spatial.transform.Rotation.from_euler("xyz", rpy)``."""
+    r, p, y = (float(a) for a in rpy)
+    return rot_z(y) @ rot_y(p) @ rot_x(r)
 
 
 def axis_angle_to_R(axis: torch.Tensor, angle) -> torch.Tensor:

@@ -1,10 +1,15 @@
-"""Instance-mask assembly from prototypes and per-detection coefficients
-(counterpart of ``assemble_masks`` in
-``poseestimator_tpu/models/yolo/masks.py``)."""
+"""Instance-mask assembly from prototypes and per-detection coefficients,
+and the host-side polygon round trip of the detector's masks (counterpart
+of ``poseestimator_tpu/models/yolo/masks.py``). The polygons are OpenCV's
+(``contours.py``: ``findContours(RETR_EXTERNAL, CHAIN_APPROX_SIMPLE)``) and
+so is their fill (``utils/draw.fill_poly``), without OpenCV."""
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from ...utils.draw import fill_poly
+from .contours import contour_area, find_external_contours
 from .preprocess import LetterboxMeta
 
 
@@ -42,3 +47,21 @@ def assemble_masks(proto: torch.Tensor, coeffs: torch.Tensor,
     inside = ((gx >= bx[:, 0, None, None]) & (gx <= bx[:, 2, None, None])
               & (gy >= bx[:, 1, None, None]) & (gy <= bx[:, 3, None, None]))
     return (up > threshold) & inside & det_valid[:, None, None]
+
+
+def masks_to_polygons(mask) -> list[np.ndarray]:
+    """Binary (H, W) mask -> its outer borders as (K, 2) float32 polygons of
+    at least 3 points, largest area first (a stable sort: equal areas keep
+    the border order)."""
+    polys = [c.astype(np.float32) for c in find_external_contours(np.asarray(mask) > 0)
+             if len(c) >= 3]
+    polys.sort(key=lambda p: -contour_area(p))
+    return polys
+
+
+def polygon_to_mask(poly, h: int, w: int) -> np.ndarray:
+    """A filled polygon -> (H, W) uint8 {0, 255} mask (``cv2.fillPoly``)."""
+    out = np.zeros((h, w), np.uint8)
+    if len(poly) >= 3:
+        fill_poly(out, np.asarray(poly, np.float32).astype(np.int32), 255)
+    return out

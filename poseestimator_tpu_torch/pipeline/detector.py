@@ -4,7 +4,10 @@ YOLO11 -> DFL decode -> NMS -> proto masks, on the device.
 
 ``model`` (the torch module) and ``variables`` (its state dict) are public:
 ``Tracker`` fuses detection into the frame when a detector carries both.
-The polygon round trip of ``detect_mask`` needs OpenCV and is not ported.
+``detect_mask`` and the stateless ``detect_mask`` run the forward on the
+device and the polygon round trip of each mask (outer border, then filled)
+on the host, as the JAX package does, through the port's cv2-free
+``masks_to_polygons`` / ``polygon_to_mask``.
 """
 from __future__ import annotations
 
@@ -17,11 +20,12 @@ import torch
 
 from ..device import resolve_device
 from ..models.yolo.decode import decode_boxes
-from ..models.yolo.masks import assemble_masks
+from ..models.yolo.masks import assemble_masks, masks_to_polygons, polygon_to_mask
 from ..models.yolo.model import YOLO11Seg
 from ..models.yolo.nms import Detections, nms
 from ..models.yolo.preprocess import boxes_to_original, letterbox
 from ..models.yolo.weights import variables_to_state_dict
+from ..utils.image import IMREAD_COLOR, read_image
 
 
 class Detector:
@@ -86,6 +90,48 @@ class Detector:
                                 for f in fields(Detections)})
         boxes_orig = torch.stack([boxes_to_original(d.boxes, m) for d, m in zip(dets, metas)])
         return stacked, boxes_orig
+
+    def detect_mask(self, img_bgr, class_id: int = 0, conf: float = 0.7) -> list[dict]:
+        """Every detection as ``{"mask", "class_id", "conf", "bbox"}``, best
+        first (``class_id`` filters nothing, as in the JAX package). Each
+        mask is the polygon round trip of the device mask: its largest
+        outer border filled, (H, W) uint8 {0, 255}."""
+        h, w = img_bgr.shape[:2]
+        det, masks, boxes_orig = self(img_bgr, conf=conf)
+        n = int(det.count())
+        masks_np = masks[:n].cpu().numpy()
+        classes = det.classes[:n].cpu().numpy()
+        confs = det.scores[:n].cpu().numpy()
+        boxes = boxes_orig[:n].cpu().numpy()
+        out = []
+        for i in range(n):
+            polys = masks_to_polygons(masks_np[i])
+            out.append({"mask": polygon_to_mask(polys[0], h, w) if polys
+                        else np.zeros((h, w), np.uint8),
+                        "class_id": int(classes[i]), "conf": float(confs[i]),
+                        "bbox": boxes[i].tolist()})
+        return out
+
+
+def detect_mask(weights_path, image, class_id: int = 0, nc: int = 5, scale: str = "n",
+                device: str | torch.device = "cuda") -> np.ndarray:
+    """The (H, W) uint8 mask of the first detection of ``class_id`` in
+    ``image`` (a path, read as BGR, or a BGR array), all zero when there is
+    none: the model loaded for the call, a 640 letterbox, confidence 0.7."""
+    if isinstance(image, (str, os.PathLike)):
+        if not os.path.exists(image):
+            raise FileNotFoundError(f"Image not found at {image}")
+        img = read_image(image, IMREAD_COLOR)
+    elif isinstance(image, np.ndarray):
+        img = image
+    else:
+        raise TypeError("Input must be a path or an image")
+    h, w = img.shape[:2]
+    det = Detector(weights_path, nc=nc, scale=scale, device=device)
+    for r in det.detect_mask(img, class_id=class_id, conf=0.7):
+        if r["class_id"] == class_id:
+            return r["mask"]
+    return np.zeros((h, w), np.uint8)
 
 
 def _is_tensor_map(d) -> bool:

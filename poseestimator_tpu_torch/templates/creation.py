@@ -13,6 +13,7 @@ camera with a 60 degree field of view.
 from __future__ import annotations
 
 import os
+from typing import Optional
 
 import numpy as np
 import torch
@@ -114,3 +115,29 @@ def render_templates(mesh_path: str, output_dir: str, seed: int = 0, view_set: s
     with open(os.path.join(output_dir, "view_set.txt"), "w") as f:
         f.write(view_set + "\n")
     return written
+
+
+# synthetic depth-noise injectors: fault-injection fixtures for tests
+
+
+def add_depth_noise(depth, sigma: float = 0.002, prob_missing: float = 0.0,
+                    rng: Optional[np.random.Generator] = None) -> np.ndarray:
+    """Gaussian depth noise plus optional random dropouts (holes), clipped
+    at 0; float32. Draws from ``rng`` (default: seeded 0) as the JAX package
+    does, so both give the same array from the same generator state."""
+    rng = rng or np.random.default_rng(0)
+    d = np.asarray(depth, np.float32)
+    noisy = d + rng.normal(0.0, sigma, d.shape)
+    if prob_missing > 0:
+        noisy = np.where(rng.random(d.shape) < prob_missing, 0.0, noisy)
+    return np.clip(noisy, 0.0, None).astype(np.float32)
+
+
+def add_depth_dependent_noise(depth, base_sigma: float = 0.001,
+                              rng: Optional[np.random.Generator] = None) -> np.ndarray:
+    """Noise whose sigma grows with the square of the depth (a stereo
+    camera's error model), clipped at 0; float32."""
+    rng = rng or np.random.default_rng(0)
+    d = np.asarray(depth, np.float32)
+    noisy = d + rng.normal(0.0, 1.0, d.shape) * (base_sigma * d * d)
+    return np.clip(noisy, 0.0, None).astype(np.float32)

@@ -4,14 +4,16 @@
 -> point cloud loader of the offline path, the BOP metric family of one
 pose estimate (ADD, ADD-S, MSSD, MSPD, VSD) and the BOP19 Average Recall.
 
-Images are read with ``utils/png.read_png``: no imaging package. The depth
-PNG is required; the colour image is read only when it is a PNG, and a JPEG
-gives ``colors=None`` (the JAX package does the same for an image its
-decoder cannot read). Colours feed nothing downstream of the cloud.
+Images are read without an imaging package: the depth PNG with
+``utils/png.read_png``, the colour image (PNG or JPEG, grey or colour, 8 or
+16 bit) with ``utils/image.read_image`` as ``cv2.imread`` reads it, then
+turned to RGB, as the JAX package does. A colour path that does not exist
+gives ``colors=None``.
 """
 from __future__ import annotations
 
 import json
+import os
 from typing import Optional
 
 import numpy as np
@@ -24,6 +26,7 @@ from ..geom3d.metrics import add_metric, adds_metric, mspd_metric, mssd_metric
 from ..geom3d.outliers import remove_statistical_outlier
 from ..geom3d.sampling import make_draws, random_sample
 from ..render.points import vsd_multi_tau
+from .image import IMREAD_COLOR, read_image
 from .png import read_png
 
 # BOP19 (Hodan et al., ECCV 2020 §2.3): the correctness thresholds and the
@@ -66,9 +69,9 @@ def get_pointcloud(depth_path, rgb_path, scene_camera_path, mask, frame_id=0,
     depth_m = depth_m * depth_scale
 
     color = None
-    if rgb_path is not None and str(rgb_path).lower().endswith(".png"):
-        rgb = read_png(str(rgb_path))
-        color = torch.from_numpy(np.ascontiguousarray(rgb[..., :3])).to(dev)
+    if rgb_path is not None and os.path.exists(str(rgb_path)):
+        rgb = read_image(str(rgb_path), IMREAD_COLOR)[..., ::-1]
+        color = torch.from_numpy(np.ascontiguousarray(rgb)).to(dev)
     cloud = backproject_depth(torch.from_numpy(depth_m).to(dev), intr,
                               mask=torch.from_numpy(binary).to(dev), depth_min=0.01,
                               depth_max=10.0, color=color)

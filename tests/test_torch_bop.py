@@ -297,10 +297,12 @@ def test_bop_helpers_match_jax(scene, tmp_path):  # noqa: F811
         bop.bop_average_recall(vsd[:, :3], mssd, mspd, 500.0)
 
 
-def test_get_pointcloud_matches_jax(scene):  # noqa: F811
+def test_get_pointcloud_matches_jax(scene, tmp_path):  # noqa: F811
     """The masked frame through both loaders, the JAX package's sampler
     draws injected (capacity 4096 >= the mask's pixels: every point
-    kept): equal points, validity and intrinsics."""
+    kept): equal points, validity and intrinsics; and equal colours from a
+    JPEG colour image (the port's decoder against cv2's, tolerance one grey
+    level)."""
     sd = scene["scene"]
     depth = os.path.join(sd, "depth", "000001.png")
     rgb = os.path.join(sd, "rgb", "000001.png")
@@ -317,10 +319,20 @@ def test_get_pointcloud_matches_jax(scene):  # noqa: F811
     np.testing.assert_array_equal(tc.valid.numpy(), np.asarray(jc.valid))
     np.testing.assert_allclose(tc.points.numpy(), np.asarray(jc.points), rtol=1e-6, atol=1e-7)
     np.testing.assert_allclose(tc.colors.numpy(), np.asarray(jc.colors), atol=1e-7)
-    # a JPEG colour image is not decoded: no colours, the same cloud
-    tj, _ = bop.get_pointcloud(depth, rgb[:-4] + ".jpg", cam, mask, frame_id=1, capacity=4096,
+    # a JPEG colour image (4:2:0, q95, as BlenderProc writes them): the same
+    # cloud, and the JAX loader's cv2-decoded colours
+    jpg = str(tmp_path / "000001.jpg")
+    assert cv2.imwrite(jpg, cv2.imread(rgb), [cv2.IMWRITE_JPEG_QUALITY, 95])
+    jj, _ = j_bop.get_pointcloud(depth, jpg, cam, mask, frame_id=1, capacity=4096)
+    tj, _ = bop.get_pointcloud(depth, jpg, cam, mask, frame_id=1, capacity=4096,
                                draws=(g, None), device="cpu")
-    assert tj.colors is None and torch.equal(tj.points, tc.points)
+    assert torch.equal(tj.points, tc.points)
+    np.testing.assert_allclose(tj.colors.numpy(), np.asarray(jj.colors), rtol=0,
+                               atol=1.0 / 255 + 1e-7)
+    # a colour path that does not exist gives no colours
+    tn, _ = bop.get_pointcloud(depth, str(tmp_path / "none.jpg"), cam, mask, frame_id=1,
+                               capacity=4096, draws=(g, None), device="cpu")
+    assert tn.colors is None and torch.equal(tn.points, tc.points)
     assert bop.get_pointcloud(depth, None, cam, np.zeros_like(mask), device="cpu") == (None, None)
 
 
@@ -330,8 +342,8 @@ def test_get_pointcloud_matches_jax(scene):  # noqa: F811
 def test_eval_bop_sweep(scene, capsys):  # noqa: F811
     """The port's ``eval_bop.run`` over the three frames on the CPU
     (offline flavour, 100 points): one row per frame, the JAX tool's
-    summary keys, bop_ar and ar_mssd > 0.5; ``--mask detector`` is a
-    stated limit."""
+    summary keys, bop_ar and ar_mssd > 0.5; ``--mask detector`` needs
+    ``--weights`` (it is run in ``tests/test_torch_apps.py``)."""
     sd = scene["scene"]
     args = ["--scene-dir", sd, "--ply", scene["cad"], "--templates", scene["views"],
             "--mask", "visib", "--target-points", "100", "--device", "cpu",
@@ -353,6 +365,6 @@ def test_eval_bop_sweep(scene, capsys):  # noqa: F811
     depthpos = eval_bop.run(eval_bop.build_parser().parse_args(
         [a if a != "visib" else "depthpos" for a in args] + ["--max-frames", "1"]), quiet=True)
     assert depthpos["frames"] == 1 and depthpos["mask"] == "depthpos"
-    with pytest.raises(NotImplementedError, match="detect_mask"):
+    with pytest.raises(SystemExit, match="--weights"):
         eval_bop.run(eval_bop.build_parser().parse_args(
             [a if a != "visib" else "detector" for a in args]))

@@ -1,7 +1,9 @@
 """The port stands alone: importing ``poseestimator_tpu_torch`` (every
 module) and ``chip_smoke.py`` loads neither ``jax`` nor ``poseestimator_tpu``,
-and the entry points refuse to run without CUDA unless asked for the CPU.
-Checked in a fresh interpreter, since this test process imports both."""
+and works with ``jax``, OpenCV, PIL, PyYAML, imageio and pyrealsense2 made
+unimportable; every app builds its parser; the entry points, the apps
+included, refuse to run without CUDA unless asked for the CPU. Checked in a
+fresh interpreter, since this test process imports both packages."""
 import json
 import os
 import subprocess
@@ -13,6 +15,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _PROBE = r"""
 import importlib, json, pkgutil, sys
+for m in ("jax", "cv2", "PIL", "yaml", "imageio", "pyrealsense2"):
+    sys.modules[m] = None  # importing any of them now raises ImportError
 import poseestimator_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for n in names:
@@ -33,14 +37,29 @@ for call in (lambda: resolve_device(),
     except RuntimeError:
         raised.append(True)
 cpu_ok = resolve_device("cpu").type == "cpu"
+from poseestimator_tpu_torch.apps import eval_bop, main_image, main_realsense, main_seibersdorf
+from poseestimator_tpu_torch.camera import record
+apps_raised = []
+for app, argv in ((main_image, ["--headless"]),
+                  (main_realsense, ["--headless", "--source", "synthetic"]),
+                  (main_seibersdorf, ["--headless", "--image", "x", "--cloud", "x",
+                                      "--calib", "x"]),
+                  (eval_bop, ["--scene-dir", "x", "--ply", "x", "--templates", "x"]),
+                  (record, ["--out", "x"])):
+    app.build_parser().parse_args(argv) if hasattr(app, "build_parser") else None
+    try:
+        app.main(argv)
+        apps_raised.append(False)
+    except RuntimeError as e:
+        apps_raised.append("CUDA" in str(e))
 from poseestimator_tpu_torch.registration import native
 print(json.dumps({"native_touched": native._tried or native._lib is not None,
     "modules": names,
-    "jax": sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
-                  or m == "flax" or m.startswith("flax.")),
+    "jax": sorted(m for m, mod in sys.modules.items() if mod is not None and (
+        m == "jax" or m.startswith("jax.") or m == "flax" or m.startswith("flax."))),
     "reference": sorted(m for m in sys.modules if m == "poseestimator_tpu"
                         or m.startswith("poseestimator_tpu.")),
-    "raised": raised, "cpu_ok": cpu_ok}))
+    "raised": raised, "apps_raised": apps_raised, "cpu_ok": cpu_ok}))
 """
 
 
@@ -52,7 +71,10 @@ def test_port_imports_no_jax_and_needs_cuda_unless_cpu():
     assert out.returncode == 0, out.stderr
     res = json.loads(out.stdout.strip().splitlines()[-1])
     for m in ("pipeline.tracking", "pipeline.offline", "utils.bop", "apps.eval_bop",
-              "registration.native"):
+              "registration.native", "apps.main_image", "apps.main_realsense",
+              "apps.main_seibersdorf", "camera.record", "utils.jpeg", "utils.image",
+              "utils.overlay", "utils.yaml_subset", "utils.config", "utils.profiling",
+              "models.yolo.contours"):
         assert f"poseestimator_tpu_torch.{m}" in res["modules"]
     assert not res["native_touched"]  # importing builds and loads nothing
     assert res["jax"] == [], res["jax"]
@@ -60,6 +82,7 @@ def test_port_imports_no_jax_and_needs_cuda_unless_cpu():
     assert res["cpu_ok"]
     if not torch.cuda.is_available():
         assert res["raised"] == [True, True]
+        assert res["apps_raised"] == [True] * 5
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):

@@ -352,3 +352,51 @@ def test_eval_bop_sweep_on_the_card_matches_the_cpu(tmp_path):
         assert abs(rc["vsd_tau10"] - rp["vsd_tau10"]) <= 0.05, (rc, rp)
     for k in ("ar_mssd", "ar_mspd"):
         assert rows["cuda"]["summary"][k] == rows["cpu"]["summary"][k]
+
+
+# --- the apps' shapes ---------------------------------------------------------
+
+APPS_NN = [(12288, 4096), (26624, 2048), (33280, 1024)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,m", APPS_NN)
+def test_fused_nn_kernel_at_the_apps_shapes(n, m):
+    """K1 at the shapes only the apps launch (``main_realsense``'s default
+    26-view database: its search's ICP over all templates' chains against
+    the observation), on template-like clouds 2 m out with about a tenth
+    of the rows invalid: bit for bit the plain version."""
+    _need_card()
+    rng = np.random.default_rng(n + m)
+    q, d = kc._cloud(rng, n, scale=0.15, center=2.0), kc._cloud(rng, m, scale=0.15, center=2.0)
+    qv, dv = rng.random(n) < 0.9, rng.random(m) < 0.9
+    _nn_same(*(torch.from_numpy(a).cuda() for a in (q, qv, d, dv)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("angle", [0.0, 0.3])
+def test_raster_kernel_at_the_apps_window(angle):
+    """K2 over the 96 x 128 window the apps' searches render at (the
+    L-shape's 24 faces padded to 256, 2.5 diagonals out at the
+    half-resolution camera), identical to the plain version."""
+    _need_card()
+    from poseestimator_tpu_torch.geom3d.se3 import look_at
+    from poseestimator_tpu_torch.pipeline.window import window_origin
+    from poseestimator_tpu_torch.render.mesh import pad_faces
+
+    v, f = kc.lshape_mesh()
+    d = np.ones(3) / np.sqrt(3.0)
+    base = kc.GL_TO_CV @ look_at(d * 2.5 * float(np.linalg.norm(v.max(0) - v.min(0))),
+                                 np.zeros(3), [0.0, 1.0, 0.0]).numpy()
+    P = np.eye(4)
+    P[:2, :2] = [[np.cos(angle), -np.sin(angle)], [np.sin(angle), np.cos(angle)]]
+    T = torch.from_numpy((P @ base).astype(np.float32)).cuda()
+    mesh_v = torch.from_numpy(v).cuda()
+    intr_r = Intrinsics.from_fov(60.0, 640, 480).scaled(2)
+    o = window_origin(mesh_v, T, intr_r, 96, 128).to(torch.float32)
+    coef, bbox = traster.face_coeffs(mesh_v, torch.from_numpy(pad_faces(f, 256)).cuda(), T,
+                                     intr_r, near=0.01, origin=o)
+    izk = traster.raster(coef, bbox, 96, 128)
+    torch.cuda.synchronize()
+    assert torch.equal(izk, traster.raster_plain(coef, 96, 128, chunk=64))
+    assert int((izk > 0).sum()) > 500
