@@ -2,7 +2,8 @@
 
 The JAX package's pipeline (camera sources, detector, template search, the
 single-object loop, multi-object tracking, the offline path and the BOP
-evaluation) and its apps (``apps/``), written in
+evaluation), detector training with its synthetic data (``training/``) and
+its apps (``apps/``), written in
 PyTorch for an NVIDIA H100, with the JAX package's two Pallas TPU kernels
 rewritten by hand in CUDA C++ for Hopper (``csrc/``): the fused nearest
 neighbour (K1, ``geom3d/fused_nn.py``) and the triangle z-buffer (K2,

@@ -34,13 +34,35 @@ def make_divisible(x: float, divisor: int = 8) -> int:
     return max(divisor, int(x + divisor / 2) // divisor * divisor)
 
 
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` with flax's train-mode law (``layers.py``: momentum
+    0.97, eps 1e-3): the running variance averages the batch's *biased*
+    variance, the one the batch is normalised with. ``nn.BatchNorm2d``
+    averages the unbiased one, n / (n - 1) larger per channel for n = B H W
+    values; the update is corrected after the fused call, a per-channel
+    operation. Evaluation is ``nn.BatchNorm2d``'s own."""
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        prior = self.running_var.clone()
+        y = super().forward(x)
+        n = x.numel() // x.shape[1]
+        # running = (1 - m) prior + m s2 n / (n - 1); flax keeps (1 - m) prior
+        # + m s2. Through .data: autograd saved the buffer with the call (its
+        # train-mode backward does not read it) and would refuse a new version
+        rv = self.running_var.data
+        rv.sub_((rv - (1.0 - self.momentum) * prior) / n)
+        return y
+
+
 class Conv(nn.Module):
-    """Conv2d(bias=False) + BatchNorm2d(eps 1e-3) + SiLU."""
+    """Conv2d(bias=False) + BatchNorm2d(eps 1e-3, flax's law) + SiLU."""
 
     def __init__(self, c1, c2, k=1, s=1, g=1, act=True):
         super().__init__()
         self.conv = nn.Conv2d(c1, c2, k, s, k // 2, groups=g, bias=False)
-        self.bn = nn.BatchNorm2d(c2, eps=1e-3, momentum=0.03)
+        self.bn = BatchNorm2d(c2, eps=1e-3, momentum=0.03)
         self.act = nn.SiLU() if act else nn.Identity()
 
     def forward(self, x):
@@ -279,3 +301,15 @@ def init_random_(model: YOLO11Seg, generator: torch.Generator) -> YOLO11Seg:
             b.zero_()
     return model
 
+
+
+@torch.no_grad()
+def init_train_(model: YOLO11Seg, generator: torch.Generator) -> YOLO11Seg:
+    """Seeded initial weights for training, the JAX package's init law:
+    ``init_random_``, with the class bias at log(5 / nc / (640 / stride)^2),
+    the prior of ~5 objects in a 640 image, so early class scores start
+    near the positive rate instead of 0.5."""
+    init_random_(model, generator)
+    for i, s in enumerate(STRIDES):
+        model.model[23].cv3[i][2].bias.fill_(math.log(5.0 / model.nc / (640.0 / s) ** 2))
+    return model

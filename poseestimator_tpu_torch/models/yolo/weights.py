@@ -8,7 +8,9 @@ kernel (kh, kw, in, out) is spatially flipped -> torch (in, out, kh, kw);
 BatchNorm scale/bias/mean/var -> weight/bias/running_mean/running_var (plus a
 zero ``num_batches_tracked``); flax module names ``m{i}``, ``m_{k}``,
 ``ffn_{k}`` and the head's ``m23_cv{2,3,4}_{level}`` map back to the
-Ultralytics ``model.{i}.{...}`` keys.
+Ultralytics ``model.{i}.{...}`` keys. ``state_dict_to_variables`` is the
+inverse: a port state dict (a trained checkpoint's) as flax variables with
+numpy leaves.
 """
 from __future__ import annotations
 
@@ -88,6 +90,74 @@ def variables_to_state_dict(variables: Mapping[str, Any]) -> dict[str, torch.Ten
         out[f"{base}.{stat}"] = torch.from_numpy(np.ascontiguousarray(w, np.float32))
         out[f"{base}.num_batches_tracked"] = torch.zeros((), dtype=torch.int64)
     return out
+
+
+_HEAD_SEQ = {(branch, names[k]): k for branch, _, names in _INV_HEAD_SEQ.values() for k in names}
+
+
+def _flax_inner(parts) -> list[str]:
+    out, i = [], 0
+    while i < len(parts):
+        if parts[i] in ("m", "ffn") and i + 1 < len(parts) and parts[i + 1].isdigit():
+            out.append(f"{parts[i]}_{parts[i + 1]}")
+            i += 2
+        else:
+            out.append(parts[i])
+            i += 1
+    return out
+
+
+def _flax_path(module: str) -> tuple:
+    """Dotted torch module path -> the flax path of that module (the inverse
+    of ``_torch_base``)."""
+    parts = module.split(".")
+    if parts[0] != "model":
+        raise KeyError(f"unmapped torch module {module}")
+    i = parts[1]
+    if i == "23" and parts[2] == "proto":
+        return ("m23_proto", *_flax_inner(parts[3:]))
+    if i == "23":
+        branch, level = parts[2], parts[3]
+        for n in (2, 1):  # "0.0"-style names of cv3 first, then "0"
+            seq = ".".join(parts[4:4 + n])
+            if (branch, seq) in _HEAD_SEQ:
+                return (f"m23_{branch}_{level}", _HEAD_SEQ[(branch, seq)],
+                        *_flax_inner(parts[4 + n:]))
+        raise KeyError(f"unmapped torch module {module}")
+    return (f"m{i}", *_flax_inner(parts[2:]))
+
+
+def _put(tree: dict, path: tuple, value) -> None:
+    for k in path[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[path[-1]] = value
+
+
+def state_dict_to_variables(state_dict: Mapping[str, torch.Tensor]) -> dict:
+    """Port state dict -> flax ``{"params", "batch_stats"}`` with numpy
+    float32 leaves (``num_batches_tracked`` has no flax counterpart)."""
+    params: dict = {}
+    stats: dict = {}
+    for key, t in state_dict.items():
+        module, leaf = key.rsplit(".", 1)
+        if leaf == "num_batches_tracked":
+            continue
+        w = t.detach().to("cpu", torch.float32).numpy()
+        path = _flax_path(module)
+        if leaf in ("running_mean", "running_var"):
+            _put(stats, (*path, "mean" if leaf == "running_mean" else "var"), w.copy())
+        elif leaf == "bias":
+            _put(params, (*path, "bias"), w.copy())
+        elif leaf == "weight" and w.ndim == 1:
+            _put(params, (*path, "scale"), w.copy())
+        elif leaf == "weight" and path[-1] == "upsample":
+            _put(params, (*path, "kernel"),
+                 np.ascontiguousarray(np.transpose(w, (2, 3, 0, 1))[::-1, ::-1]))
+        elif leaf == "weight":
+            _put(params, (*path, "kernel"), np.ascontiguousarray(np.transpose(w, (2, 3, 1, 0))))
+        else:
+            raise KeyError(f"unknown state dict entry {key}")
+    return {"params": params, "batch_stats": stats}
 
 
 def load_variables(model: torch.nn.Module, variables: Mapping[str, Any]) -> torch.nn.Module:

@@ -32,10 +32,15 @@ class Detector:
     """YOLO11-seg detector.
 
     Args:
-        yolo_weights: flax variables ``{"params", "batch_stats"}`` with numpy
-            leaves; a ``.npz`` holding them under ``"variables"``; an
-            Ultralytics checkpoint or state dict (a path, a mapping or an
-            ``nn.Module``). An orbax checkpoint directory is not supported.
+        yolo_weights: one of
+            - a port checkpoint ``.pt`` written by ``Trainer.save`` (its
+              ``"params"``: the EMA weights with the BN statistics);
+            - a port state dict (``Trainer.export_variables``);
+            - flax variables ``{"params", "batch_stats"}`` with numpy
+              leaves, or a ``.npz`` holding them under ``"variables"``;
+            - an Ultralytics checkpoint or state dict (a path, a mapping or
+              an ``nn.Module``).
+            The JAX trainer's orbax checkpoint directories are not read.
         nc: number of classes (must match the checkpoint).
         scale: YOLO11 compound scale.
         imgsz: square letterbox size.
@@ -46,6 +51,7 @@ class Detector:
     def __init__(self, yolo_weights, nc: int = 5, scale: str = "n", imgsz: int = 640,
                  max_det: int = 32, pre_nms: int = 1024, device: str | torch.device = "cuda"):
         self.device = resolve_device(device)
+        self.nc, self.scale = nc, scale
         self.imgsz = imgsz
         self.max_det = max_det
         # pre-NMS candidate pool: plenty at product confidence (0.25+)
@@ -175,7 +181,9 @@ def _load_variables(source) -> dict[str, torch.Tensor]:
             return variables_to_state_dict(np.load(path, allow_pickle=True)["variables"].item())
         source = _torch_load(path)
     if isinstance(source, Mapping) and "params" in source:
-        return variables_to_state_dict(source)
+        if not _is_tensor_map(source["params"]):
+            return variables_to_state_dict(source)  # flax variables
+        source = source["params"]  # a port checkpoint
     if isinstance(source, Mapping) and "model" in source and not _is_tensor_map(source):
         source = source["model"]
     if hasattr(source, "state_dict"):

@@ -1,7 +1,8 @@
 """Raster primitives with OpenCV's pixel rules, without OpenCV: the lines,
 filled circles and filled polygons that the overlays and the detector's
-mask round trip draw (``cv2.line`` at thickness 1 and 2, ``cv2.circle``
-filled, ``cv2.fillPoly``), all 8-connected (``LINE_8``) on integer points.
+mask round trip and the synthetic backgrounds draw (``cv2.line`` at
+thickness 1 and 2, ``cv2.circle`` and ``cv2.rectangle`` filled,
+``cv2.fillPoly``), all 8-connected (``LINE_8``) on integer points.
 
 The algorithms are OpenCV's ``drawing.cpp``: Bresenham's line walked left to
 right (``LineIterator``); a thick line as the convex quadrilateral around
@@ -216,6 +217,17 @@ def circle(img: np.ndarray, center, radius: int, color) -> None:
             err -= minus
             dx -= 1
             minus -= 2
+
+
+def rectangle(img: np.ndarray, p1, p2, color) -> None:
+    """``cv2.rectangle(img, p1, p2, color, -1)``: the filled rectangle with
+    corners p1 and p2 (in either order) inclusive, clipped to the image."""
+    h, w = img.shape[:2]
+    x0, x1 = sorted((int(p1[0]), int(p2[0])))
+    y0, y1 = sorted((int(p1[1]), int(p2[1])))
+    x0, x1, y0, y1 = max(x0, 0), min(x1, w - 1), max(y0, 0), min(y1, h - 1)
+    if x0 <= x1 and y0 <= y1:
+        img[y0:y1 + 1, x0:x1 + 1] = color
 
 
 def line(img: np.ndarray, p1, p2, color, thickness: int = 1) -> None:

@@ -17,13 +17,15 @@ the three modes convert as OpenCV's PNG and JPEG readers do:
 The format is read from the file's signature, not its name. A missing file
 raises ``FileNotFoundError``, an unknown format ``ValueError`` (where
 ``cv2.imread`` returns None). ``write_image`` writes PNG the way
-``cv2.imwrite`` does: BGR(A) in memory, RGB(A) on disk.
+``cv2.imwrite`` does (BGR in memory, RGB on disk), and a ``.jpg`` /
+``.jpeg`` path as the very bytes of ``cv2.imwrite`` at its defaults
+(``jpeg.encode_jpeg``).
 """
 from __future__ import annotations
 
 import numpy as np
 
-from .jpeg import decode_jpeg
+from .jpeg import decode_jpeg, encode_jpeg
 from .png import read_png, write_png
 
 # cv2's flag values
@@ -72,8 +74,13 @@ def read_image(path, mode: int = IMREAD_COLOR) -> np.ndarray:
 
 def write_image(path, img: np.ndarray) -> None:
     """Write a (H, W, 3) uint8 BGR image or an (H, W) uint8 / uint16 grey
-    image as PNG, as ``cv2.imwrite`` writes it."""
+    image as ``cv2.imwrite`` writes it: JPEG (quality 95) for a ``.jpg`` or
+    ``.jpeg`` path, PNG otherwise."""
     img = np.asarray(img)
+    if str(path).lower().endswith((".jpg", ".jpeg")):
+        with open(path, "wb") as f:
+            f.write(encode_jpeg(img))
+        return
     if img.ndim == 3:
         if img.shape[2] != 3:
             raise ValueError(f"write_image: expected 3 channels, got {img.shape}")

@@ -415,3 +415,308 @@ def _reconstruct(frame, coefs, qt, adobe_transform, grey) -> np.ndarray:
         r, g, b = (p.astype(np.int64) for p in planes)
         return ((19595 * r + 38470 * g + 7471 * b + (1 << 15)) >> 16).astype(np.uint8)
     return np.stack(planes, -1).astype(np.uint8)  # stored as RGB
+
+
+# ---------------------------------------------------------------------------
+# baseline encoding: cv2.imencode(".jpg", img) at its defaults
+# ---------------------------------------------------------------------------
+
+# ITU-T T.81 Annex K.1 quantisation tables, natural order
+_STD_LUMA_Q = np.array([
+    16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60, 55,
+    14, 13, 16, 24, 40, 57, 69, 56, 14, 17, 22, 29, 51, 87, 80, 62,
+    18, 22, 37, 56, 68, 109, 103, 77, 24, 35, 55, 64, 81, 104, 113, 92,
+    49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99], np.int64)
+_STD_CHROMA_Q = np.array([
+    17, 18, 24, 47, 99, 99, 99, 99, 18, 21, 26, 66, 99, 99, 99, 99,
+    24, 26, 56, 99, 99, 99, 99, 99, 47, 66, 99, 99, 99, 99, 99, 99,
+    99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99,
+    99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99], np.int64)
+# Annex K.3 Huffman tables: (code counts by length 1..16, symbols)
+_STD_DC_LUMA = ([0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0], list(range(12)))
+_STD_DC_CHROMA = ([0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0], list(range(12)))
+_STD_AC_LUMA = ([0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 0x7d], bytes.fromhex(
+    "01020300041105122131410613516107227114328191a1082342b1c11552d1f02433627282090a16"
+    "1718191a25262728292a3435363738393a434445464748494a535455565758595a636465666768696a"
+    "737475767778797a838485868788898a92939495969798999aa2a3a4a5a6a7a8a9aab2b3b4b5b6b7b8"
+    "b9bac2c3c4c5c6c7c8c9cad2d3d4d5d6d7d8d9dae1e2e3e4e5e6e7e8e9eaf1f2f3f4f5f6f7f8f9fa"))
+_STD_AC_CHROMA = ([0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 0x77], bytes.fromhex(
+    "000102031104052131061241510761711322328108144291a1b1c109233352f0156272d10a162434"
+    "e125f11718191a262728292a35363738393a434445464748494a535455565758595a636465666768"
+    "696a737475767778797a82838485868788898a92939495969798999aa2a3a4a5a6a7a8a9aab2b3b4"
+    "b5b6b7b8b9bac2c3c4c5c6c7c8c9cad2d3d4d5d6d7d8d9dae2e3e4e5e6e7e8e9eaf2f3f4f5f6f7f8"
+    "f9fa"))
+_ZZ = np.asarray(_ZIGZAG)
+
+
+def _quality_table(base: np.ndarray, quality: int) -> np.ndarray:
+    """``jpeg_set_quality(quality, force_baseline=TRUE)``'s scaling."""
+    quality = min(max(quality, 1), 100)
+    scale = 5000 // quality if quality < 50 else 200 - quality * 2
+    return np.clip((base * scale + 50) // 100, 1, 255)
+
+
+def _code_table(counts, symbols):
+    """Canonical Huffman codes -> (code (256,), length (256,)) by symbol."""
+    code = np.zeros(256, np.int64)
+    size = np.zeros(256, np.int64)
+    c, k = 0, 0
+    for length, n in enumerate(counts, start=1):
+        for _ in range(n):
+            code[symbols[k]], size[symbols[k]] = c, length
+            c += 1
+            k += 1
+        c <<= 1
+    return code, size
+
+
+def _rgb_to_ycc(rgb: np.ndarray) -> np.ndarray:
+    """``jccolor.c``'s fixed-point RGB -> YCbCr, (..., 3) uint8 -> int64."""
+    fix = lambda x: int(x * 65536 + 0.5)  # noqa: E731
+    r, g, b = (rgb[..., i].astype(np.int64) for i in range(3))
+    half = 1 << 15
+    y = (fix(0.29900) * r + fix(0.58700) * g + fix(0.11400) * b + half) >> 16
+    cb = (-fix(0.16874) * r - fix(0.33126) * g + fix(0.5) * b + (128 << 16) + half - 1) >> 16
+    cr = (fix(0.5) * r - fix(0.41869) * g - fix(0.08131) * b + (128 << 16) + half - 1) >> 16
+    return np.stack([y, cb, cr], axis=-1)
+
+
+def _fdct_1d(d, axis: int, final: bool):
+    """One pass of ``jfdctint.c``'s ``jpeg_fdct_islow`` along ``axis``."""
+    s = [np.take(d, i, axis=axis) for i in range(8)]
+    tmp0, tmp7 = s[0] + s[7], s[0] - s[7]
+    tmp1, tmp6 = s[1] + s[6], s[1] - s[6]
+    tmp2, tmp5 = s[2] + s[5], s[2] - s[5]
+    tmp3, tmp4 = s[3] + s[4], s[3] - s[4]
+    tmp10, tmp13 = tmp0 + tmp3, tmp0 - tmp3
+    tmp11, tmp12 = tmp1 + tmp2, tmp1 - tmp2
+    n = _CONST_BITS + _PASS1_BITS if final else _CONST_BITS - _PASS1_BITS
+    out = [None] * 8
+    if final:
+        out[0] = _descale(tmp10 + tmp11, _PASS1_BITS)
+        out[4] = _descale(tmp10 - tmp11, _PASS1_BITS)
+    else:
+        out[0] = (tmp10 + tmp11) << _PASS1_BITS
+        out[4] = (tmp10 - tmp11) << _PASS1_BITS
+    z1 = (tmp12 + tmp13) * _F0541
+    out[2] = _descale(z1 + tmp13 * _F0765, n)
+    out[6] = _descale(z1 - tmp12 * _F1847, n)
+    z1, z2, z3, z4 = tmp4 + tmp7, tmp5 + tmp6, tmp4 + tmp6, tmp5 + tmp7
+    z5 = (z3 + z4) * _F1175
+    tmp4, tmp5, tmp6, tmp7 = tmp4 * _F0298, tmp5 * _F2053, tmp6 * _F3072, tmp7 * _F1501
+    z1, z2 = z1 * -_F0899, z2 * -_F2562
+    z3, z4 = z3 * -_F1961 + z5, z4 * -_F0390 + z5
+    out[7] = _descale(tmp4 + z1 + z3, n)
+    out[5] = _descale(tmp5 + z2 + z4, n)
+    out[3] = _descale(tmp6 + z2 + z3, n)
+    out[1] = _descale(tmp7 + z1 + z4, n)
+    return np.stack(out, axis=axis)
+
+
+def fdct_islow(blocks: np.ndarray) -> np.ndarray:
+    """(N, 8, 8) samples -> (N, 8, 8) DCT coefficients scaled by 8, as
+    ``jpeg_fdct_islow`` computes them (rows, then columns)."""
+    d = blocks.astype(np.int64) - 128
+    return _fdct_1d(_fdct_1d(d, 2, False), 1, True)
+
+
+def _quantize(coef: np.ndarray, qtable: np.ndarray) -> np.ndarray:
+    """libjpeg-turbo's quantiser: the division by 8 q as a multiplication by
+    its 16-bit reciprocal (``compute_reciprocal``), sign handled apart."""
+    div = qtable << 3
+    b = np.floor(np.log2(div)).astype(np.int64)
+    r = 16 + b
+    fq, fr = (np.int64(1) << r) // div, (np.int64(1) << r) % div
+    c = div // 2
+    exact = fr == 0
+    fq = np.where(exact, fq >> 1, np.where(fr <= div // 2, fq, fq + 1))
+    r = np.where(exact, r - 1, r)
+    c = np.where(~exact & (fr <= div // 2), c + 1, c)
+    mag = ((np.abs(coef) + c) * fq) >> r
+    return np.where(coef < 0, -mag, mag)
+
+
+def _blocks(plane: np.ndarray, bh: int, bw: int) -> np.ndarray:
+    """(H, W) plane edge-replicated to (8 bh, 8 bw) -> (bh, bw, 8, 8)."""
+    h, w = plane.shape
+    p = np.pad(plane, ((0, 8 * bh - h), (0, 8 * bw - w)), mode="edge")
+    return p.reshape(bh, 8, bw, 8).transpose(0, 2, 1, 3)
+
+
+def _h2v2_downsample(plane: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
+    """``jcsample.c``'s ``h2v2_downsample``: 2 x 2 sums plus a bias of 1, 2,
+    1, 2, ... along each row, over the plane edge-replicated to twice the
+    output size."""
+    h, w = plane.shape
+    p = np.pad(plane, ((0, 2 * out_h - h), (0, 2 * out_w - w)), mode="edge")
+    s = p[0::2, 0::2] + p[0::2, 1::2] + p[1::2, 0::2] + p[1::2, 1::2]
+    bias = np.where(np.arange(out_w) % 2 == 0, 1, 2)
+    return (s + bias[None, :]) >> 2
+
+
+def _huffman_events(q: np.ndarray, comp: np.ndarray, dc_tabs, ac_tabs):
+    """Coded bits of the blocks ``q`` (N, 64 zigzag) in scan order, block n
+    of component ``comp[n]``: -> (values, lengths) of every emitted code
+    with its appended magnitude bits, in stream order."""
+    n = len(q)
+    # DC: differences from the previous block of the same component
+    dc = q[:, 0]
+    pred = np.zeros(n, np.int64)
+    for c in np.unique(comp):
+        idx = np.nonzero(comp == c)[0]
+        pred[idx[1:]] = dc[idx[:-1]]
+    diff = dc - pred
+    # per-event arrays: block, order key within block, symbol table, symbol, value
+    nb_dc = _nbits(diff)
+    ev_block = [np.arange(n)]
+    ev_key = [np.zeros(n, np.int64)]
+    ev_ac = [np.zeros(n, bool)]
+    ev_sym = [nb_dc]
+    ev_val = [diff]
+    ev_nb = [nb_dc]
+    # AC: run lengths of zeros before each nonzero coefficient
+    blk, k = np.nonzero(q[:, 1:])
+    k = k + 1
+    first = np.r_[True, blk[1:] != blk[:-1]] if len(blk) else np.zeros(0, bool)
+    prev = np.where(first, 0, np.r_[0, k[:-1]])
+    run = k - prev - 1
+    nzrl = run >> 4
+    val = q[blk, k]
+    nb = _nbits(val)
+    # ZRLs (16 zeros each) precede their coefficient
+    zb = np.repeat(blk, nzrl)
+    zk = np.repeat(2 * k, nzrl) - 1  # just before the coefficient's key 2k
+    ev_block += [blk, zb]
+    ev_key += [2 * k, zk]
+    ev_ac += [np.ones(len(blk), bool), np.ones(len(zb), bool)]
+    ev_sym += [((run & 15) << 4) | nb, np.full(len(zb), 0xF0, np.int64)]
+    ev_val += [val, np.zeros(len(zb), np.int64)]
+    ev_nb += [nb, np.zeros(len(zb), np.int64)]
+    # EOB after the last nonzero coefficient unless it is the 63rd
+    last = np.zeros(n, np.int64)
+    if len(blk):
+        last[blk] = k  # the last write per block wins: k ascends within a block
+    eob = np.nonzero(last < 63)[0]
+    ev_block.append(eob)
+    ev_key.append(np.full(len(eob), 200, np.int64))
+    ev_ac.append(np.ones(len(eob), bool))
+    ev_sym.append(np.zeros(len(eob), np.int64))
+    ev_val.append(np.zeros(len(eob), np.int64))
+    ev_nb.append(np.zeros(len(eob), np.int64))
+
+    block, key = np.concatenate(ev_block), np.concatenate(ev_key)
+    is_ac, sym = np.concatenate(ev_ac), np.concatenate(ev_sym)
+    val, nb = np.concatenate(ev_val), np.concatenate(ev_nb)
+    order = np.lexsort((key, block))
+    block, is_ac, sym, val, nb = block[order], is_ac[order], sym[order], val[order], nb[order]
+    c = comp[block]
+    code = np.zeros(len(sym), np.int64)
+    size = np.zeros(len(sym), np.int64)
+    for t in range(len(dc_tabs)):
+        for tabs, ac in ((dc_tabs, False), (ac_tabs, True)):
+            m = (c == t) & (is_ac == ac)
+            code[m], size[m] = tabs[t][0][sym[m]], tabs[t][1][sym[m]]
+    extra = np.where(val < 0, val - 1, val) & ((np.int64(1) << nb) - 1)
+    return (code << nb) | extra, size + nb
+
+
+def _nbits(v: np.ndarray) -> np.ndarray:
+    """Bit length of |v| (0 for 0)."""
+    a = np.abs(v)
+    nb = np.zeros(a.shape, np.int64)
+    nz = a > 0
+    nb[nz] = np.floor(np.log2(a[nz])).astype(np.int64) + 1
+    return nb
+
+
+def _pack_bits(values: np.ndarray, lengths: np.ndarray) -> bytes:
+    """Concatenate codes MSB first, pad the last byte with 1 bits and stuff
+    a 0 after every 0xFF byte."""
+    total = int(lengths.sum())
+    start = np.cumsum(lengths) - lengths
+    ev = np.repeat(np.arange(len(values)), lengths)
+    j = np.arange(total) - np.repeat(start, lengths)  # bit index within its code
+    bits = (values[ev] >> (lengths[ev] - 1 - j)) & 1
+    pad = (-total) % 8
+    bits = np.concatenate([bits, np.ones(pad, np.int64)]).astype(np.uint8)
+    data = np.packbits(bits)
+    ff = data == 0xFF
+    out = np.zeros(len(data) + int(ff.sum()), np.uint8)
+    pos = np.arange(len(data)) + np.cumsum(ff) - ff
+    out[pos] = data
+    return out.tobytes()
+
+
+def _segment(marker: int, payload: bytes) -> bytes:
+    return struct.pack(">HH", 0xFF00 | marker, len(payload) + 2) + payload
+
+
+def encode_jpeg(img: np.ndarray, quality: int = 95) -> bytes:
+    """The bytes of ``cv2.imencode(".jpg", img)`` at its defaults for a
+    (H, W, 3) uint8 BGR or (H, W) grey image: baseline, JFIF 1.01, the
+    Annex K tables scaled to ``quality``, 4:2:0 chroma, standard Huffman
+    tables, no restart markers; libjpeg's fixed-point colour conversion
+    (``jccolor.c``), ``h2v2_downsample`` (``jcsample.c``), ``islow``
+    forward DCT (``jfdctint.c``) and libjpeg-turbo's quantiser, with the
+    padding and dummy blocks of ``jccoefct.c`` at the image's right and
+    bottom edges. Vectorised over all blocks; the Huffman codes are
+    concatenated at their cumulative bit offsets."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8 or img.ndim not in (2, 3) or (img.ndim == 3 and img.shape[2] != 3):
+        raise ValueError(
+            f"encode_jpeg takes (H, W) or (H, W, 3) uint8, got {img.shape} {img.dtype}")
+    H, W = img.shape[:2]
+    qt = [_quality_table(_STD_LUMA_Q, quality), _quality_table(_STD_CHROMA_Q, quality)]
+    dc_tabs = [_code_table(*_STD_DC_LUMA), _code_table(*_STD_DC_CHROMA)]
+    ac_tabs = [_code_table(*_STD_AC_LUMA), _code_table(*_STD_AC_CHROMA)]
+    grey = img.ndim == 2
+    if grey:
+        bh, bw = -(-H // 8), -(-W // 8)
+        q = _quantize(fdct_islow(_blocks(img.astype(np.int64), bh, bw).reshape(-1, 8, 8))
+                      .reshape(-1, 64), qt[0])
+        scan = q[:, _ZZ]
+        comp = np.zeros(len(scan), np.int64)
+        comps = [(1, 0x11, 0)]
+    else:
+        ycc = _rgb_to_ycc(img[..., ::-1])
+        my, mx = -(-H // 16), -(-W // 16)
+        ybh, ybw = -(-H // 8), -(-W // 8)
+        yq = _quantize(fdct_islow(_blocks(ycc[..., 0], ybh, ybw).reshape(-1, 8, 8))
+                       .reshape(ybh, ybw, 64), qt[0])
+        # dummy blocks fill the last MCU column and row: DC of the block
+        # before them, AC zero
+        full = np.zeros((2 * my, 2 * mx, 64), np.int64)
+        full[:ybh, :ybw] = yq
+        if ybw % 2:
+            full[:ybh, ybw, 0] = yq[:, ybw - 1, 0]
+        if ybh % 2:
+            full[ybh, :, 0] = full[ybh - 1, 1::2, 0].repeat(2)
+        chroma = []
+        for ci in (1, 2):
+            sub = _h2v2_downsample(ycc[..., ci], -(-H // 2), 8 * mx)
+            blk = _blocks(sub, my, mx).reshape(-1, 8, 8)
+            chroma.append(_quantize(fdct_islow(blk).reshape(my, mx, 64), qt[1]))
+        # MCU: Y00 Y01 Y10 Y11 Cb Cr
+        yb = full.reshape(my, 2, mx, 2, 64).transpose(0, 2, 1, 3, 4).reshape(my, mx, 4, 64)
+        mcu = np.concatenate([yb, chroma[0][:, :, None], chroma[1][:, :, None]], axis=2)
+        scan = mcu.reshape(-1, 64)[:, _ZZ]
+        comp = np.tile(np.array([0, 0, 0, 0, 1, 2]), my * mx)
+        comps = [(1, 0x22, 0), (2, 0x11, 1), (3, 0x11, 1)]
+    table_of = np.array([t for _, _, t in comps])
+    values, lengths = _huffman_events(scan, comp, [dc_tabs[t] for t in table_of],
+                                      [ac_tabs[t] for t in table_of])
+
+    out = [b"\xff\xd8", _segment(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")]
+    for t in sorted(set(table_of.tolist())):
+        out.append(_segment(0xDB, bytes([t]) + bytes(qt[t][_ZZ].astype(np.uint8))))
+    out.append(_segment(0xC0, struct.pack(">BHHB", 8, H, W, len(comps)) + b"".join(
+        bytes([cid, samp, t]) for cid, samp, t in comps)))
+    for t in sorted(set(table_of.tolist())):
+        for cls, (counts, syms) in ((0, (_STD_DC_LUMA, _STD_DC_CHROMA)[t]),
+                                    (1, (_STD_AC_LUMA, _STD_AC_CHROMA)[t])):
+            out.append(_segment(0xC4, bytes([cls << 4 | t]) + bytes(counts) + bytes(syms)))
+    out.append(_segment(0xDA, bytes([len(comps)]) + b"".join(
+        bytes([cid, t << 4 | t]) for cid, _, t in comps) + b"\x00\x3f\x00"))
+    out.append(_pack_bits(values, lengths))
+    out.append(b"\xff\xd9")
+    return b"".join(out)

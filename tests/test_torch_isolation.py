@@ -1,8 +1,9 @@
 """The port stands alone: importing ``poseestimator_tpu_torch`` (every
 module) and ``chip_smoke.py`` loads neither ``jax`` nor ``poseestimator_tpu``,
-and works with ``jax``, OpenCV, PIL, PyYAML, imageio and pyrealsense2 made
-unimportable; every app builds its parser; the entry points, the apps
-included, refuse to run without CUDA unless asked for the CPU. Checked in a
+and works with ``jax``, flax, optax, orbax, OpenCV, PIL, PyYAML, imageio and
+pyrealsense2 made unimportable; every app builds its parser; the entry
+points, the apps and the trainer and generator included, refuse to run
+without CUDA unless asked for the CPU. Checked in a
 fresh interpreter, since this test process imports both packages."""
 import json
 import os
@@ -15,7 +16,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _PROBE = r"""
 import importlib, json, pkgutil, sys
-for m in ("jax", "cv2", "PIL", "yaml", "imageio", "pyrealsense2"):
+for m in ("jax", "flax", "optax", "orbax", "cv2", "PIL", "yaml", "imageio", "pyrealsense2"):
     sys.modules[m] = None  # importing any of them now raises ImportError
 import poseestimator_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
@@ -27,10 +28,14 @@ from poseestimator_tpu_torch.models.yolo.model import YOLO11Seg
 from poseestimator_tpu_torch.pipeline.tracking import FusedFrame
 from poseestimator_tpu_torch.geom3d.camera import Intrinsics
 import numpy as np
+from poseestimator_tpu_torch.training.synth import SynthConfig, generate
+from poseestimator_tpu_torch.training.trainer import TrainConfig, Trainer
 raised = []
 for call in (lambda: resolve_device(),
              lambda: FusedFrame(YOLO11Seg(nc=5), np.zeros((8, 3), np.float32),
-                                np.zeros((4, 3), np.int32), Intrinsics.from_fov(60, 64, 48))):
+                                np.zeros((4, 3), np.int32), Intrinsics.from_fov(60, 64, 48)),
+             lambda: Trainer(TrainConfig(data="x")),
+             lambda: generate(SynthConfig(cad=["x"], out="x"))):
     try:
         call()
         raised.append(False)
@@ -38,6 +43,7 @@ for call in (lambda: resolve_device(),
         raised.append(True)
 cpu_ok = resolve_device("cpu").type == "cpu"
 from poseestimator_tpu_torch.apps import eval_bop, main_image, main_realsense, main_seibersdorf
+from poseestimator_tpu_torch.apps import generate as generate_app, train, val
 from poseestimator_tpu_torch.camera import record
 apps_raised = []
 for app, argv in ((main_image, ["--headless"]),
@@ -45,7 +51,10 @@ for app, argv in ((main_image, ["--headless"]),
                   (main_seibersdorf, ["--headless", "--image", "x", "--cloud", "x",
                                       "--calib", "x"]),
                   (eval_bop, ["--scene-dir", "x", "--ply", "x", "--templates", "x"]),
-                  (record, ["--out", "x"])):
+                  (record, ["--out", "x"]),
+                  (generate_app, ["--cad", "x", "--out", "x"]),
+                  (train, ["--data", "x"]),
+                  (val, ["--weights", "x"])):
     app.build_parser().parse_args(argv) if hasattr(app, "build_parser") else None
     try:
         app.main(argv)
@@ -55,8 +64,8 @@ for app, argv in ((main_image, ["--headless"]),
 from poseestimator_tpu_torch.registration import native
 print(json.dumps({"native_touched": native._tried or native._lib is not None,
     "modules": names,
-    "jax": sorted(m for m, mod in sys.modules.items() if mod is not None and (
-        m == "jax" or m.startswith("jax.") or m == "flax" or m.startswith("flax."))),
+    "jax": sorted(m for m, mod in sys.modules.items() if mod is not None and any(
+        m == p or m.startswith(p + ".") for p in ("jax", "flax", "optax", "orbax"))),
     "reference": sorted(m for m in sys.modules if m == "poseestimator_tpu"
                         or m.startswith("poseestimator_tpu.")),
     "raised": raised, "apps_raised": apps_raised, "cpu_ok": cpu_ok}))
@@ -74,15 +83,17 @@ def test_port_imports_no_jax_and_needs_cuda_unless_cpu():
               "registration.native", "apps.main_image", "apps.main_realsense",
               "apps.main_seibersdorf", "camera.record", "utils.jpeg", "utils.image",
               "utils.overlay", "utils.yaml_subset", "utils.config", "utils.profiling",
-              "models.yolo.contours"):
+              "models.yolo.contours", "utils.imgproc", "training.assigner", "training.loss",
+              "training.data", "training.trainer", "training.evaluate", "training.synth",
+              "apps.generate", "apps.train", "apps.val"):
         assert f"poseestimator_tpu_torch.{m}" in res["modules"]
     assert not res["native_touched"]  # importing builds and loads nothing
     assert res["jax"] == [], res["jax"]
     assert res["reference"] == [], res["reference"]
     assert res["cpu_ok"]
     if not torch.cuda.is_available():
-        assert res["raised"] == [True, True]
-        assert res["apps_raised"] == [True] * 5
+        assert res["raised"] == [True] * 4
+        assert res["apps_raised"] == [True] * 8
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):

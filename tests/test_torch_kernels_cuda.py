@@ -400,3 +400,50 @@ def test_raster_kernel_at_the_apps_window(angle):
     torch.cuda.synchronize()
     assert torch.equal(izk, traster.raster_plain(coef, 96, 128, chunk=64))
     assert int((izk > 0).sum()) > 500
+
+
+# --- the synthetic generator's shapes -------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_icosphere", [False, True])
+def test_batched_raster_kernel_at_the_synth_shapes(with_icosphere):
+    """K2's batched entry at the generator's mesh-instrument frames: three
+    object slots over 480 x 640, the L-shape and the bench box padded to
+    256 faces, and with the 0.1 m icosphere (decimated to <= 4096 faces)
+    to 4096; poses drawn as the generator draws them. Bit for bit the
+    batched plain version; ``_mesh_parts`` launches it once a frame, with
+    an invalid slot emptied to nothing."""
+    _need_card()
+    from poseestimator_tpu_torch.render.mesh import TriangleMesh, decimate_to_faces, pad_faces
+    from poseestimator_tpu_torch.training import synth
+
+    meshes = [kc.lshape_mesh(), (kc.box_vertices(), kc.BOX_FACES)]
+    if with_icosphere:
+        dec = decimate_to_faces(TriangleMesh(*make_icosphere(radius=0.1, subdivisions=4)), 4096)
+        meshes.append((dec.vertices, dec.faces))
+    else:
+        meshes.append(kc.lshape_mesh())
+    v_cap = max(len(v) for v, _ in meshes)
+    f_cap = -(-max(len(f) for _, f in meshes) // 256) * 256
+    assert f_cap == (4096 if with_icosphere else 256)
+    vb = torch.from_numpy(np.stack([np.pad(v, ((0, v_cap - len(v)), (0, 0)), mode="edge")
+                                    for v, _ in meshes]).astype(np.float32)).cuda()
+    fb = torch.from_numpy(np.stack([pad_faces(f, f_cap) for _, f in meshes])).cuda()
+    rng = np.random.default_rng(int(with_icosphere))
+    intr = Intrinsics.from_fov(60.0, 640, 480)
+    Ts = torch.from_numpy(np.stack([
+        synth._place_instance(rng, intr, float(np.linalg.norm(v.max(0) - v.min(0))))
+        for v, _ in meshes])).cuda()
+    coef, bbox = traster.face_coeffs(vb, fb, Ts, intr, near=0.01)
+    before = traster.raster_batched_stats.launches
+    izk = traster.raster_batched(coef, bbox, 480, 640)
+    torch.cuda.synchronize()
+    assert traster.raster_batched_stats.launches == before + 1
+    assert torch.equal(izk, traster.raster_batched_plain(coef, 480, 640, chunk=64))
+    assert int((izk > 0).sum()) > 1000
+    ok = torch.tensor([True, True, False], device="cuda")
+    colors = torch.full((3, 3), 0.5, device="cuda")
+    d, rgb = synth._mesh_parts(vb, fb, ok, Ts, colors, intr)
+    torch.cuda.synchronize()
+    assert traster.raster_batched_stats.launches == before + 2
+    assert int((d[2] > 0).sum()) == 0 and int((d[0] > 0).sum()) > 100
