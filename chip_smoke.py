@@ -112,7 +112,35 @@ port's two paths and checks their accuracy against ground truth:
   against a float64 CPU reference, the second step's weights and EMA
   within 1e-5 of the leaf's scale where both know the gradient. The
   batched K2 is then held bit for bit against its plain version at the
-  generator's two shapes and timed.
+  generator's two shapes and timed;
+- the multi-device paths (``parallel/``), the port's counterpart of the
+  JAX package's ``dryrun_multichip``, each at world 1 over NCCL and at
+  world 2 as two processes sharing the card over gloo, launched through
+  ``parallel.launch`` (a rank's failure fails the run); the launch counts
+  are set to 0 in each rank just before each part and read just after.
+  One ``{"parallel": ...}`` line per part and world: (p1)
+  ``sharded_chamfer`` at 16384 x 16384, within 1e-6 of the single-device
+  Chamfer, 2 K1 launches a rank; (p2) ``PoseEstimator(view_set="full",
+  mesh_devices=)``, the 26-view search of the offline scene's first pose
+  with the apps phase's database: world 1 bit-equal to the single-device
+  estimator without the final prune (``search_final_topk=0``), world 2
+  the same winner and scores within 1e-5, winner ADD-S < 1.5 cm; then
+  ``sharded_template_search`` on the 16-template synthetic fixture, gated
+  as the dry run gates it (the winner's ADD < 0.15 m) and world 1
+  bit-equal to ``search_templates``, world 2's score differences printed;
+  (p3) ``sharded_multi_track``: four tracks of the L-shape from perturbed
+  poses, three steps on one frame, bit-equal to the unsharded batched
+  step at both world sizes, each track's ADD below 0.85 of its start and
+  the mean below 0.7 (the dry run's gates), one batched K2 a rank and
+  frame; (p4) ``ShardedDetector`` on 8 images at 640, valid equal, scores
+  within 1e-5, boxes within 1e-4 px of ``predict_batch`` (deterministic
+  cuDNN); (p5) two data-parallel train steps at batch 16 and 640 (world 2:
+  8 + 8), loss parts within 1e-4 relative, weights within 2e-5 where both
+  runs know the gradient, BN statistics within 1e-4 of the leaf's scale
+  (world 2 hands gloo CUDA tensors for every collective). Every time
+  there is that of processes sharing one card, not a speed-up. K1 and K2
+  at the phase's new per-rank shapes are then held bit for bit against
+  their plain versions and timed.
 
 The search phase also runs one search twice from one generator state on
 observation (b) and demands bit-equal poses and rankings.
@@ -2072,7 +2100,7 @@ def train_phase(torch, dev, rs, tmp: str, card: str, size=(640, 480), imgsz: int
     if bad or worst["params"] > 1e-5 or worst["ema"] > 1e-5:
         fail(f"(t4): the card's float32 error against float64 exceeds 4x the CPU's in {bad}, "
              f"or step 2 differs on determined elements: {err} {worst}")
-    return {"parts": parts, "raster_inputs": k2_inputs}
+    return {"parts": parts, "raster_inputs": k2_inputs, "dataset_yaml": yml}
 
 
 def check_b_independence(torch, trk, args, kw, draws, res) -> dict:
@@ -2251,6 +2279,16 @@ def profile_calls(torch, fn, n: int, path: str, unit: str) -> dict:
     return out
 
 
+def par_launches(par: dict, key: str) -> dict:
+    """The parallel phase's launches of one kernel by part and world, one
+    count per rank (batched: per rank and frame of (p3))."""
+    if key.endswith("batched"):
+        return {name: [r[key] for r in rec["batched_launches_per_rank_per_frame"]]
+                for name, rec in par["parts"].items() if name.startswith("p3")}
+    return {f"{p} world {w}": [r[p][key] for r in ranks]
+            for w, ranks in par["launches"].items() for p in ranks[0]}
+
+
 def apps_launches(parts: dict, k: str) -> dict:
     """A kernel's launches in each apps part (``k``: "k1" or "k2"; the
     batched entry beside it)."""
@@ -2259,6 +2297,422 @@ def apps_launches(parts: dict, k: str) -> dict:
     out["a2"] = {f"{k}_per_tracked_frame": parts["a2"][f"{k}_per_tracked_frame"],
                  f"{k}_per_init": parts["a2"][f"{k}_per_init"]}
     return out
+
+
+PAR_POINTS = 16384  # (p1) points a cloud
+PAR_SYNTH_TEMPLATES = 16  # (p2) templates of the synthetic search, as the dry run builds
+PAR_SEARCH_REPS = 3  # (p2) timed warm searches a world
+PAR_TRACKS = 4  # (p3) tracks
+PAR_STEPS = 3  # (p3) sharded steps on the one frame, as the dry run takes
+PAR_DET_BATCH = 8  # (p4) images
+PAR_TRAIN_BATCH = 16  # (p5) the global batch
+PAR_IMGSZ = 640  # (p4), (p5) letterbox
+PAR_TRAIN_STEPS = 2  # (p5) update 0 has lr 0: the second moves the weights
+PAR_WORLDS = ((1, "nccl", "cuda"), (2, "gloo", "cuda:0"))
+
+
+def parallel_rank(io: str, world: int) -> None:
+    """One rank of the parallel phase (module level: the launcher imports it
+    again in each child process). Runs (p1)-(p5) on the mesh of ``world``
+    ranks, with the launch counts set to 0 just before each part and read
+    just after; the world of one also runs the single-device references.
+    Saves what it got, and rank 0 the kernels' inputs by shape, into
+    ``io``; the parent process compares and gates."""
+    import torch
+
+    from poseestimator_tpu_torch.geom3d import fused_nn as fnn
+    from poseestimator_tpu_torch.geom3d import knn as knn_mod
+    from poseestimator_tpu_torch.geom3d.camera import Intrinsics, backproject_depth
+    from poseestimator_tpu_torch.geom3d.cloud import PointCloud, from_points
+    from poseestimator_tpu_torch.geom3d.metrics import add_metric, chamfer_distance
+    from poseestimator_tpu_torch.geom3d.sampling import random_sample
+    from poseestimator_tpu_torch.models.yolo.model import YOLO11Seg, init_random_
+    from poseestimator_tpu_torch.parallel import (ShardedDetector, make_mesh,
+                                                  make_synthetic_search_inputs, sharded_chamfer,
+                                                  sharded_multi_track, sharded_template_search)
+    from poseestimator_tpu_torch.pipeline.detector import Detector
+    from poseestimator_tpu_torch.pipeline.pose_estimator import PoseEstimator, search_templates
+    from poseestimator_tpu_torch.pipeline.tracking import track_step_batched
+    from poseestimator_tpu_torch.render import raster as rs
+    from poseestimator_tpu_torch.training import trainer as trainer_mod
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    with open(os.path.join(io, "spec.json")) as fh:
+        spec = json.load(fh)
+    mesh, tmesh = make_mesh("dp"), make_mesh("tp")
+    dev, single = mesh.device, world == 1
+    res = {"rank": mesh.rank, "size": mesh.size, "device": str(dev), "backend": mesh.backend}
+    counters = {"k1": fnn.fused_nn_stats, "k1_batched": fnn.fused_nn_batched_stats,
+                "k2": rs.raster_stats, "k2_batched": rs.raster_batched_stats}
+    inputs = {"nn": {}, "nn_batched": {}, "raster": {}, "raster_batched": {}}
+    knn_mod.fused_nn = _first_call_recorder(torch, inputs["nn"], knn_mod.fused_nn,
+                                            lambda q, qv, d, dv: (q.shape[0], d.shape[0]))
+    knn_mod.fused_nn_batched = _first_call_recorder(
+        torch, inputs["nn_batched"], knn_mod.fused_nn_batched,
+        lambda q, qv, d, dv: (q.shape[0], q.shape[1], d.shape[1]))
+    rs.raster = _first_call_recorder(torch, inputs["raster"], rs.raster,
+                                     lambda c, b, H, W: (H, W, c.shape[0]))
+    rs.raster_batched = _first_call_recorder(torch, inputs["raster_batched"], rs.raster_batched,
+                                             lambda c, b, H, W: (c.shape[0], H, W, c.shape[1]))
+
+    def run(fn):
+        """``fn()`` with the launch counts set to 0 before and read after:
+        ``(out, ms, counts)``."""
+        torch.cuda.synchronize()
+        for c in counters.values():
+            c.launches = 0
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t) * 1e3, {k: c.launches for k, c in counters.items()}
+
+    cpu = lambda x: x.detach().cpu() if torch.is_tensor(x) else x  # noqa: E731
+
+    # (p1) the query-sharded Chamfer
+    g = torch.Generator(device=dev).manual_seed(0)
+    a = torch.randn(PAR_POINTS, 3, device=dev, generator=g)
+    b = a + 0.01 * torch.randn(PAR_POINTS, 3, device=dev, generator=g)
+    ones = torch.ones(PAR_POINTS, dtype=torch.bool, device=dev)
+    sharded_chamfer(mesh, a, ones, b, ones)  # warm-up
+    ch, ms, n = run(lambda: float(sharded_chamfer(mesh, a, ones, b, ones)))
+    res["p1"] = {"chamfer": ch, "ms": ms, **n}
+    if single:
+        res["p1"]["single"] = float(chamfer_distance(PointCloud(a, ones), PointCloud(b, ones)))
+
+    # (p2) the sharded product search: PoseEstimator(mesh_devices=) on the
+    # 26 views, then the synthetic fixture as the dry run searches it
+    intr = Intrinsics.from_fov(60.0, 640, 480)
+    T_true = torch.tensor(spec["scene_pose"], device=dev)
+    est, build_ms, _ = run(lambda: PoseEstimator(spec["cad"], spec["views"], intr,
+                                                 view_set="full", mesh_devices=tmesh))
+    depth = rs.render_depth_mesh(est._mesh_v, est._mesh_f, T_true, intr, near=0.01, far=5.0)
+    cloud = random_sample(backproject_depth(depth, intr, depth_min=0.01, depth_max=5.0), 16384,
+                          torch.Generator(device=dev).manual_seed(1))
+    mask = depth > 0
+
+    def estimator_record(e):
+        (H, _, cand), ms, n = run(lambda: e.find_best_template_candidates(cloud, mask=mask))
+        return {"H": H, "scores": [c[0] for c in cand], "order": [c[2] for c in cand],
+                "Ts": np.stack([c[1] for c in cand]), "ms": ms, **n}
+
+    rec = estimator_record(est)
+    rec["templates"] = int(est._tpl_points.shape[0])
+    rec["build_ms"] = build_ms
+    rec["warm_ms"] = [run(lambda: est.find_best_template_candidates(cloud, mask=mask))[1]
+                      for _ in range(PAR_SEARCH_REPS)]
+    res["p2 estimator"] = rec
+    if single:
+        est_s = PoseEstimator(spec["cad"], spec["views"], intr, view_set="full",
+                              search_final_topk=0, device=dev)
+        srec = estimator_record(est_s)
+        srec["warm_ms"] = [run(lambda: est_s.find_best_template_candidates(cloud, mask=mask))[1]
+                           for _ in range(PAR_SEARCH_REPS)]
+        rec["single"] = srec
+    fx = make_synthetic_search_inputs(n_tpl=PAR_SYNTH_TEMPLATES, C=128, n_cad=1200, device=dev)
+    good, T_gt = fx.pop("good_idx"), torch.from_numpy(fx.pop("T_gt")).to(dev)
+    model = from_points(fx["cad_points"], device=dev)
+
+    def synthetic():
+        return sharded_template_search(tmesh, generator=torch.Generator(device=dev).manual_seed(0),
+                                       **fx)
+
+    synthetic()  # warm-up
+    (_, Hr, sc), ms, n = run(synthetic)
+    w = int(torch.argmin(sc))
+    res["p2 synthetic"] = {"Hr": cpu(Hr), "scores": cpu(sc), "good": good, "ms": ms, **n,
+                           "add": float(add_metric(Hr[w], T_gt, model))}
+    if single:
+        r = search_templates(fx["dst_points"], fx["dst_valid"], fx["tpl_points"],
+                             fx["tpl_valid"], fx["tpl_fpfh"], fx["cad_points"], fx["cad_valid"],
+                             fx["intr"], fx["mask_sil"], True, 0.05,
+                             torch.Generator(device=dev).manual_seed(0), n_final=None,
+                             render_kind="points")
+        res["p2 synthetic"]["single"] = {"Hr": cpu(r[4]), "scores": cpu(r[3])}
+
+    # (p3) the object-sharded frame step: B tracks of the scene's L-shape,
+    # each from its own perturbation of the truth, three steps on one frame
+    c, s = np.cos(0.03), np.sin(0.03)
+    perts = []
+    for i in range(PAR_TRACKS):
+        D = np.eye(4, dtype=np.float32)
+        D[:3, :3] = [[c, -s, 0], [s, c, 0], [0, 0, 1]]
+        D[:3, 3] = [0.004 * ((i % 3) - 1), 0.003, 0.002]
+        perts.append(D @ np.asarray(spec["scene_pose"], np.float32))
+    Ts0 = torch.from_numpy(np.stack(perts)).to(dev)
+    masks = mask[None].expand(PAR_TRACKS, -1, -1).contiguous()
+    dists = torch.full((PAR_TRACKS,), 0.05, device=dev)
+
+    def steps(step_fn):
+        gen, T, out = torch.Generator(device=dev).manual_seed(3), Ts0, []
+        for _ in range(PAR_STEPS):
+            r, ms, n = run(lambda: step_fn(T, gen))
+            T = r[0]
+            out.append({"ms": ms, **n})
+        return [cpu(x) for x in r], out
+
+    args = (est._mesh_v, est._mesh_f, masks, depth)
+    steps(lambda T, gen: sharded_multi_track(mesh, *args, T, intr, 0, dists, generator=gen))
+    r, per_step = steps(lambda T, gen: sharded_multi_track(mesh, *args, T, intr, 0, dists,
+                                                           generator=gen))
+    res["p3"] = {"T": r[0], "fitness": r[1], "rmse": r[2], "cov": r[3], "Ts0": cpu(Ts0),
+                 "steps": per_step}
+    if single:
+        r, _ = steps(lambda T, gen: (lambda o: (o.T, o.fitness, o.rmse, o.cov))(
+            track_step_batched(*args, T, intr, dists, target_pts=0, icp_pose_tol=5e-5,
+                               generator=gen)))
+        res["p3"]["single"] = {"T": r[0], "fitness": r[1], "rmse": r[2], "cov": r[3]}
+
+    # (p4) batch-sharded detection serving, seeded YOLO11n-seg weights
+    yolo = init_random_(YOLO11Seg(nc=5, scale="n"), torch.Generator().manual_seed(0))
+    det = Detector(yolo.state_dict(), nc=5, imgsz=PAR_IMGSZ, device=dev)
+    imgs = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 255, (PAR_DET_BATCH, 480, 640, 3), dtype=np.uint8)).to(dev)
+    sd = ShardedDetector.from_detector(det, mesh)
+    sd(imgs)  # warm-up
+    (d, bx), ms, _ = run(lambda: sd(imgs))
+    res["p4"] = {"valid": cpu(d.valid), "scores": cpu(d.scores), "classes": cpu(d.classes),
+                 "boxes": cpu(bx), "ms": ms}
+    if single:
+        det.predict_batch(imgs)
+        (d, bx), ms, _ = run(lambda: det.predict_batch(imgs))
+        res["p4"]["single"] = {"valid": cpu(d.valid), "scores": cpu(d.scores),
+                               "classes": cpu(d.classes), "boxes": cpu(bx), "ms": ms}
+
+    # (p5) data-parallel train steps at the operating point: rank 0 loads
+    # the global batch and scatters it
+    cfg = trainer_mod.TrainConfig(
+        data=spec["dataset"], epochs=1, imgsz=PAR_IMGSZ, batch=PAR_TRAIN_BATCH, augment=False,
+        workers=0, warmup_epochs=0.0, project=os.path.join(io, f"runs{world}"), name="p5",
+        device=str(dev))
+    tr = trainer_mod.Trainer(cfg, mesh=mesh)
+    state = tr.init_state()
+
+    def global_batches():  # epoch after epoch: the dataset may hold one batch
+        while True:
+            yield from tr._batches(tr.loader)
+
+    batches, rows = global_batches(), []
+    for _ in range(PAR_TRAIN_STEPS):
+        ten, load_ms, _ = run(lambda: tr._tensors(next(batches)))
+        (state, parts), ms, _ = run(lambda: tr._train_step(state, *ten))
+        rows.append({"parts": {k: float(v) for k, v in parts.items()}, "ms": ms,
+                     "load_scatter_ms": load_ms, "lr": tr.last_lr})
+    res["p5"] = {"steps": rows, "params": {k: cpu(v) for k, v in state.params.items()},
+                 "mu": [cpu(m) for m in state.opt_state["mu"]],
+                 "stats": {k: cpu(v) for k, v in state.batch_stats.items()},
+                 "local_batch": int(ten[0].shape[0])}
+
+    torch.save(res, os.path.join(io, f"world{world}_rank{mesh.rank}.pt"))
+    if mesh.rank == 0:
+        torch.save(inputs, os.path.join(io, f"inputs{world}.pt"))
+
+
+def _max_abs(a, b) -> float:
+    d = (a.double() - b.double()).abs()
+    return float(d.max()) if d.numel() else 0.0
+
+
+def parallel_phase(torch, dev, kc, off_dir: str, dataset_yaml: str, tmp: str, card: str) -> dict:
+    """The multi-device paths (the port's counterpart of the JAX package's
+    ``dryrun_multichip``), parts (p1)-(p5), each at world 1 over NCCL and at
+    world 2 as two processes sharing this card over gloo, on the offline
+    phase's L-shape CAD and scene pose, the apps phase's 26-view database
+    and the training phase's dataset. One ``{"parallel": ...}`` line per
+    part and world size; every time is that of processes sharing one card,
+    not a speed-up. Returns the parts, the gloo probe and the kernels'
+    inputs by shape (first call of each, rank 0 of each world)."""
+    from poseestimator_tpu_torch.parallel import launch
+    from poseestimator_tpu_torch.render.mesh import TriangleMesh
+
+    io = os.path.join(tmp, "parallel")
+    os.makedirs(io, exist_ok=True)
+    T_true = kc.bop_scene_poses()[0]
+    with open(os.path.join(io, "spec.json"), "w") as fh:
+        json.dump({"cad": os.path.join(off_dir, "obj_000001.ply"),
+                   "views": os.path.join(off_dir, "views_full"), "dataset": dataset_yaml,
+                   "scene_pose": T_true.tolist()}, fh)
+    runs, wall_s = {}, {}
+    for world, backend, device in PAR_WORLDS:
+        t = time.perf_counter()
+        launch(parallel_rank, world, backend, device, init_file=os.path.join(io, f"rdv{world}"),
+               args=(io, world))
+        wall_s[world] = time.perf_counter() - t
+        runs[world] = [torch.load(os.path.join(io, f"world{world}_rank{r}.pt"),
+                                  map_location="cpu", weights_only=False) for r in range(world)]
+    one, two = runs[1][0], runs[2]
+    ranks = [one] + two
+    v, f = kc.lshape_mesh()
+    pts = torch.from_numpy(TriangleMesh(vertices=v, faces=f).sample_points_uniformly(
+        2000, np.random.default_rng(1))[0])
+    T_t = torch.from_numpy(T_true)
+    parts = {}
+
+    def emit(part: str, world: int, rec: dict) -> dict:
+        backend = dict((w, b) for w, b, _ in PAR_WORLDS)[world]
+        rec = {"part": part, "world": world, "backend": backend, "card": card,
+               "ms_are": f"{world} process(es) sharing one card, not a speed-up", **rec}
+        log(json.dumps({"parallel": rec}))
+        parts[f"{part} world {world}"] = rec
+        return rec
+
+    counts = lambda r, keys=("k1", "k2", "k1_batched", "k2_batched"): {  # noqa: E731
+        k: r[k] for k in keys}
+
+    # (p1)
+    ref = one["p1"]["single"]
+    for world, rs_ in ((1, [one]), (2, two)):
+        rel = [abs(r["p1"]["chamfer"] - ref) / ref for r in rs_]
+        rec = emit("p1 sharded_chamfer 16384x16384", world, {
+            "chamfer": rs_[0]["p1"]["chamfer"], "single_device": ref, "rel_diff": max(rel),
+            "ms": [r["p1"]["ms"] for r in rs_], "launches_per_rank": [counts(r["p1"])
+                                                                      for r in rs_]})
+        if not max(rel) <= 1e-6:
+            fail(f"parallel p1 world {world}: Chamfer {rel} from the single device (> 1e-6)")
+        if any(r["p1"]["k1"] != 2 for r in rs_):
+            fail(f"parallel p1 world {world}: K1 launches {rec['launches_per_rank']} (2 a rank)")
+
+    # (p2) the estimator
+    s = one["p2 estimator"]["single"]
+    for world, rs_ in ((1, [one]), (2, two)):
+        e = [r["p2 estimator"] for r in rs_]
+        sc = torch.tensor(e[0]["scores"])
+        # scores in template order for the comparison
+        by_tpl = lambda rec: torch.tensor(rec["scores"])[torch.argsort(  # noqa: E731
+            torch.tensor(rec["order"]))]
+        diff = _max_abs(by_tpl(e[0]), by_tpl(s))
+        adds = adds_cm(torch, pts, torch.from_numpy(np.asarray(e[0]["H"], np.float32)), T_t)
+        bit = (np.array_equal(e[0]["H"], s["H"]) and e[0]["order"] == s["order"]
+               and e[0]["scores"] == s["scores"] and np.array_equal(e[0]["Ts"], s["Ts"]))
+        rec = emit("p2 PoseEstimator(mesh_devices=), 26 views, 640x480", world, {
+            "templates": e[0]["templates"], "winner": e[0]["order"][0],
+            "single_device_winner": s["order"][0], "bit_equal_single_device": bit,
+            "max_score_diff": diff, "adds_cm": adds, "adds_budget_cm": ADDS_BUDGET_CM,
+            "first_ms": [x["ms"] for x in e], "warm_ms": [x["warm_ms"] for x in e],
+            "single_device_warm_ms": s["warm_ms"], "build_ms": [x["build_ms"] for x in e],
+            "launches_per_rank": [counts(x) for x in e]})
+        if world == 1 and not bit:
+            fail("parallel p2: the world-1 search differs from the single-device search")
+        if world == 2 and not (rec["winner"] == rec["single_device_winner"] and diff <= 1e-5):
+            fail(f"parallel p2 world 2: winner {rec['winner']} (single "
+                 f"{rec['single_device_winner']}), scores {diff} from world 1 (> 1e-5)")
+        if any(not np.array_equal(x["H"], e[0]["H"]) or x["scores"] != e[0]["scores"]
+               for x in e):
+            fail(f"parallel p2 world {world}: the ranks' results differ")
+        if not adds < ADDS_BUDGET_CM:
+            fail(f"parallel p2 world {world}: winner ADD-S {adds:.4f} cm >= {ADDS_BUDGET_CM}")
+        if any(x["k1"] == 0 or x["k2"] == 0 for x in e):
+            fail(f"parallel p2 world {world}: K1/K2 launches {rec['launches_per_rank']}")
+    # (p2) the synthetic fixture, gated as the dry run gates it (finite
+    # scores, the winner's ADD) and by world 1 equal to the single device.
+    # At world 2 a decoy chain can exit its strict-tolerance ICP an
+    # iteration apart: the batched ICP's CUDA reductions over (B, N) round
+    # by B, and 8 chains a rank are not 16 (the port's CPU ranks agree bit
+    # for bit); the differences are printed
+    ss = one["p2 synthetic"]["single"]
+    for world, rs_ in ((1, [one]), (2, two)):
+        e = [r["p2 synthetic"] for r in rs_]
+        d = (e[0]["scores"].double() - ss["scores"].double()).abs()
+        bit = torch.equal(e[0]["scores"], ss["scores"]) and torch.equal(e[0]["Hr"], ss["Hr"])
+        w = int(torch.argmin(e[0]["scores"]))
+        rec = emit(f"p2 sharded_template_search, synthetic {PAR_SYNTH_TEMPLATES} templates",
+                   world, {"winner": w, "good_idx": e[0]["good"], "add_m": e[0]["add"],
+                           "bit_equal_single_device": bit, "max_score_diff": float(d.max()),
+                           "templates_differing": [int(i) for i in torch.nonzero(d > 0)],
+                           "winner_score_diff": float(d[w]),
+                           "ms": [x["ms"] for x in e], "launches_per_rank": [counts(x) for x in e]})
+        if (world == 1 and not bit) or w != int(torch.argmin(ss["scores"])) \
+                or not torch.isfinite(e[0]["scores"]).all():
+            fail(f"parallel p2 synthetic world {world}: {rec}")
+        if not e[0]["add"] < 0.15:  # the dry run's gate
+            fail(f"parallel p2 synthetic world {world}: winner ADD {e[0]['add']:.4f} >= 0.15")
+        if any(not torch.equal(x["scores"], e[0]["scores"]) for x in e):
+            fail(f"parallel p2 synthetic world {world}: the ranks' results differ")
+
+    # (p3)
+    st = one["p3"]["single"]
+    model_v = torch.from_numpy(v)
+
+    def add_mm(T):
+        return float(((model_v @ T[:3, :3].T + T[:3, 3])
+                      - (model_v @ T_t[:3, :3].T + T_t[:3, 3])).norm(dim=1).mean()) * 1e3
+
+    for world, rs_ in ((1, [one]), (2, two)):
+        e = [r["p3"] for r in rs_]
+        bit = all(torch.equal(x[k], st[k]) for x in e for k in ("T", "fitness", "rmse", "cov"))
+        before = [add_mm(T) for T in e[0]["Ts0"]]
+        after = [add_mm(T) for T in e[0]["T"]]
+        per_frame = [{k: float(np.mean([s_[k] for s_ in x["steps"]])) for k in (
+            "k1_batched", "k2_batched")} for x in e]
+        rec = emit(f"p3 sharded_multi_track, {PAR_TRACKS} L-shape tracks, 640x480", world, {
+            "bit_equal_world1_and_unsharded": bit, "add_mm_start": before, "add_mm_after": after,
+            "add_mm_mean": [float(np.mean(before)), float(np.mean(after))],
+            "step_ms": [[s_["ms"] for s_ in x["steps"]] for x in e],
+            "batched_launches_per_rank_per_frame": per_frame})
+        if not bit:
+            fail(f"parallel p3 world {world}: differs from the unsharded batched step")
+        if not (all(a < 0.85 * b for a, b in zip(after, before))
+                and np.mean(after) < 0.7 * np.mean(before)):
+            fail(f"parallel p3 world {world}: ADD {before} -> {after} mm")
+        if any(p["k2_batched"] != 1 or p["k1_batched"] < 2 for p in per_frame):
+            fail(f"parallel p3 world {world}: batched launches a frame {per_frame}")
+
+    # (p4)
+    sd_ = one["p4"]["single"]
+    for world, rs_ in ((1, [one]), (2, two)):
+        e = [r["p4"] for r in rs_]
+        same_valid = all(torch.equal(x["valid"], sd_["valid"]) for x in e)
+        ds = max(_max_abs(x["scores"], sd_["scores"]) for x in e)
+        db = max(_max_abs(x["boxes"], sd_["boxes"]) for x in e)
+        rec = emit(f"p4 ShardedDetector, batch {PAR_DET_BATCH} at 640x480", world, {
+            "detections": int(sd_["valid"].sum()), "valid_equal": same_valid,
+            "max_score_diff": ds, "max_box_diff_px": db, "ms": [x["ms"] for x in e],
+            "single_device_ms": sd_["ms"]})
+        if not (same_valid and ds <= 1e-5 and db <= 1e-4):
+            fail(f"parallel p4 world {world}: {rec}")
+
+    # (p5)
+    t1 = one["p5"]
+    for world, rs_ in ((1, [one]), (2, two)):
+        e = [r["p5"] for r in rs_]
+        x = e[0]
+        part_rel = max(abs(a["parts"][k] - b["parts"][k]) / max(abs(b["parts"][k]), 1e-12)
+                       for a, b in zip(x["steps"], t1["steps"]) for k in b["parts"])
+        known = total = 0
+        worst = 0.0
+        for k, m1, m2 in zip(t1["params"], t1["mu"], x["mu"]):
+            sure = (m1.abs() > 1e-6) & ((m2 - m1).abs() <= 1e-3 * m1.abs())
+            known, total = known + int(sure.sum()), total + sure.numel()
+            d = (x["params"][k] - t1["params"][k]).abs()[sure]
+            worst = max(worst, float(d.max()) if d.numel() else 0.0)
+        bn = max(leaf_rel_err(x["stats"][k], t1["stats"][k]) for k in t1["stats"]
+                 if t1["stats"][k].is_floating_point())
+        replicated = all(torch.equal(y["params"][k], x["params"][k]) for y in e
+                         for k in x["params"])
+        rec = emit(f"p5 data-parallel train step, batch {PAR_TRAIN_BATCH} "
+                   f"({' + '.join(str(y['local_batch']) for y in e)}) at {PAR_IMGSZ}", world, {
+                       "loss_parts": x["steps"][-1]["parts"], "max_part_rel_diff": part_rel,
+                       "max_param_diff_where_known": worst, "known_share": known / total,
+                       "max_bn_stat_rel_diff": bn, "replicated": replicated,
+                       "step_ms": [[r_["ms"] for r_ in y["steps"]] for y in e],
+                       "load_scatter_ms": [[r_["load_scatter_ms"] for r_ in y["steps"]]
+                                           for y in e],
+                       "lr": [r_["lr"] for r_ in x["steps"]]})
+        if not (part_rel <= 1e-4 and worst <= 2e-5 and known / total > 0.5 and bn <= 1e-4
+                and replicated):
+            fail(f"parallel p5 world {world}: {rec}")
+
+    log(json.dumps({"parallel": {"part": "launch to exit, s", "card": card, **wall_s}}))
+    inputs = [torch.load(os.path.join(io, f"inputs{w}.pt"), map_location=dev,
+                         weights_only=False) for w, _, _ in PAR_WORLDS]
+    merged = {k: {**inputs[0][k], **inputs[1][k]} for k in inputs[0]}
+    return {"parts": parts, "wall_s": wall_s,
+            "nn_inputs": merged["nn"], "nn_batched_inputs": merged["nn_batched"],
+            "raster_inputs": merged["raster"], "raster_batched_inputs": merged["raster_batched"],
+            "launches": {w: [{p: {k: v for k, v in r[p].items() if k in (
+                "k1", "k2", "k1_batched", "k2_batched")} for p in ("p1", "p2 estimator",
+                                                                   "p2 synthetic")}
+                for r in runs[w]] for w in runs}}
 
 
 def main(argv=None) -> int:
@@ -2420,6 +2874,8 @@ def main(argv=None) -> int:
         apps = apps_phase(torch, dev, kc, fnn, rs, off_dir, offline["offline"]["summary"], card)
         # 11. detector training and synthetic data
         train = train_phase(torch, dev, rs, tmp, card)
+        # 12. the multi-device paths at world 1 (NCCL) and 2 (gloo, one card)
+        par = parallel_phase(torch, dev, kc, off_dir, train.pop("dataset_yaml"), tmp, card)
     # the apps' kernel shapes that no earlier phase gave (checked below)
     new = lambda got, *seen: {k: v for k, v in got.items()  # noqa: E731
                               if not any(k in d for d in seen)}
@@ -2429,6 +2885,14 @@ def main(argv=None) -> int:
     apps_nnb = new(apps.pop("nn_batched_inputs"), multi["nn_inputs"],
                    offline["nn_batched_inputs"])
     apps_k2b = new(apps.pop("raster_batched_inputs"), multi["raster_inputs"])
+    par_nn = new(par.pop("nn_inputs"), search["nn_inputs"], tracker["nn_inputs"],
+                 offline["nn_inputs"], apps_nn)
+    par_k2 = new(par.pop("raster_inputs"), search["raster_inputs"], tracker["raster_inputs"],
+                 apps_k2)
+    par_nnb = new(par.pop("nn_batched_inputs"), multi["nn_inputs"],
+                  offline["nn_batched_inputs"], apps_nnb)
+    par_k2b = new(par.pop("raster_batched_inputs"), multi["raster_inputs"], apps_k2b,
+                  train["raster_inputs"])
     search_k = check_search_shapes(torch, fnn, rs, search.pop("nn_inputs"),
                                    search.pop("raster_inputs"))
     tracker_k = check_search_shapes(torch, fnn, rs, tracker.pop("nn_inputs"),
@@ -2441,6 +2905,8 @@ def main(argv=None) -> int:
     apps_k = check_search_shapes(torch, fnn, rs, apps_nn, apps_k2, where="the apps'")
     apps_kb = check_batched_shapes(torch, fnn, rs, apps_nnb, apps_k2b)
     synth_kb = check_batched_shapes(torch, fnn, rs, {}, train.pop("raster_inputs"))
+    par_k = check_search_shapes(torch, fnn, rs, par_nn, par_k2, where="the parallel phase's")
+    par_kb = check_batched_shapes(torch, fnn, rs, par_nnb, par_k2b)
 
     if args.profile:
         # the first 5 frames of the sequence again from the start pose
@@ -2464,7 +2930,7 @@ def main(argv=None) -> int:
         "k1_launches": k1_launches, "k2_launches": k2_launches,
         "search": search, "tracker": tracker["parts"], "icp_options": icp_options,
         "multi": multi["parts"], "offline": offline, "apps": apps["parts"],
-        "train": train["parts"],
+        "train": train["parts"], "parallel": par["parts"], "parallel_wall_s": par["wall_s"],
     }
     log(f"track step alone: {track_ms:.3f} ms; one host read: {read_us:.1f} us")
     k2_main = k2["shapes"][k2["main"]]
@@ -2481,7 +2947,8 @@ def main(argv=None) -> int:
                           **{f"search {k}": v for k, v in search_k["K1"].items()},
                           **{f"tracker {k}": v for k, v in tracker_k["K1"].items()},
                           **{f"offline {k}": v for k, v in offline_k["K1"].items()},
-                          **{f"apps {k}": v for k, v in apps_k["K1"].items()}},
+                          **{f"apps {k}": v for k, v in apps_k["K1"].items()},
+                          **{f"parallel {k}": v for k, v in par_k["K1"].items()}},
          "search_launches": {n: r["k1_launches"] for n, r in search["scenes"].items()},
          "offline_launches": {n: {"k1_launches": offline[n]["k1_launches"],
                                   "k1_per_frame": offline[n]["k1_per_frame"]}
@@ -2490,6 +2957,7 @@ def main(argv=None) -> int:
              "k1_launches", "k1_per_tracked_frame", "k1_per_init")}
              for p in tracker["parts"].values()},
          "apps_launches": apps_launches(apps["parts"], "k1"),
+         "parallel_launches_per_rank": par_launches(par, "k1"),
          "cost_model": k1["cost_model"]},
         {"name": "K2 raster", "route": "cuda",
          "source": "poseestimator_tpu_torch/csrc/raster.cu",
@@ -2504,12 +2972,14 @@ def main(argv=None) -> int:
                              for k, v in k2["shapes"].items() if k != k2["main"]},
                           **{f"search {k}": v for k, v in search_k["K2"].items()},
                           **{f"tracker {k}": v for k, v in tracker_k["K2"].items()},
-                          **{f"apps {k}": v for k, v in apps_k["K2"].items()}},
+                          **{f"apps {k}": v for k, v in apps_k["K2"].items()},
+                          **{f"parallel {k}": v for k, v in par_k["K2"].items()}},
          "search_launches": {n: r["k2_launches"] for n, r in search["scenes"].items()},
          "tracker_launches": {p["part"]: {k: p[k] for k in (
              "k2_launches", "k2_per_tracked_frame", "k2_per_init")}
              for p in tracker["parts"].values()},
-         "apps_launches": apps_launches(apps["parts"], "k2")},
+         "apps_launches": apps_launches(apps["parts"], "k2"),
+         "parallel_launches_per_rank": par_launches(par, "k2")},
     ]}
     mparts = [multi["parts"][k] for k in ("m1", "m2", "m3")]
     k1b_offline = {"offline_launches": {n: {k: offline[n][k] for k in (
@@ -2518,14 +2988,18 @@ def main(argv=None) -> int:
             ("K1 fused_nn batched", "k1_launches", "poseestimator_tpu_torch/csrc/fused_nn.cu",
              "poseestimator_tpu/geom3d/pallas_nn.py:30",
              {**multi_k["K1"], **{f"offline {k}": v for k, v in offline_kb["K1"].items()},
-              **{f"apps {k}": v for k, v in apps_kb["K1"].items()}},
-             k1b_offline),
+              **{f"apps {k}": v for k, v in apps_kb["K1"].items()},
+              **{f"parallel {k}": v for k, v in par_kb["K1"].items()}},
+             {**k1b_offline, "parallel_launches_per_rank_per_frame": par_launches(
+                 par, "k1_batched")}),
             ("K2 raster batched", "k2_launches", "poseestimator_tpu_torch/csrc/raster.cu",
              "poseestimator_tpu/render/raster.py:134",
              {**multi_k["K2"], **{f"apps {k}": v for k, v in apps_kb["K2"].items()},
-              **{f"synth {k}": v for k, v in synth_kb["K2"].items()}},
+              **{f"synth {k}": v for k, v in synth_kb["K2"].items()},
+              **{f"parallel {k}": v for k, v in par_kb["K2"].items()}},
              {"synth_launches": {"t1 generate": train["parts"]["t1 generate"][
-                 "k2_batched_launches"]}})):
+                 "k2_batched_launches"]},
+              "parallel_launches_per_rank_per_frame": par_launches(par, "k2_batched")})):
         # the main shape: the largest batch of the 640x480 part
         main = max((k for k in shapes if k.startswith("B=")),
                    key=lambda k: int(k.split(" ")[0][2:]))
@@ -2549,7 +3023,7 @@ def main(argv=None) -> int:
     log(f"card: {card}")
     log(json.dumps({k: v for k, v in summary.items() if k not in (
         "frame_ms", "icp_n_iters", "kernels", "search", "tracker", "multi", "icp_options",
-        "offline", "apps", "train")}))
+        "offline", "apps", "train", "parallel")}))
     log(json.dumps({"search": search}))
     log(json.dumps(kernels_line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

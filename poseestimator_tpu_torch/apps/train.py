@@ -1,17 +1,23 @@
 """YOLO11-seg fine-tuning (counterpart of ``detection/train.py``) at the
 reference's operating point: epochs 300, imgsz 640, batch 16, Adam, lr0
-0.001, patience 10, save + save_json, project/name run dirs, resume. One
-device: the card by default, ``--device cpu`` on request; a device list
-(``0,1``) is not ported yet (ROADMAP Queue 1 item 4).
+0.001, patience 10, save + save_json, project/name run dirs, resume. The
+card by default, ``--device cpu`` on request. Data-parallel over N devices
+under ``torchrun``: every process joins the group torchrun describes, and
+the trainer splits each global ``--batch`` over the ranks (rank 0 loads and
+writes); a device list (``0,1``) raises.
 
 Run:
     python -m poseestimator_tpu_torch.apps.train --data dataset.yaml [overrides]
+    torchrun --nproc_per_node N -m poseestimator_tpu_torch.apps.train --data dataset.yaml
 """
 from __future__ import annotations
 
 import argparse
 import sys
 
+import torch.distributed as dist
+
+from ..parallel.mesh import init_from_env
 from ..training.trainer import TrainConfig, Trainer, check_device
 
 
@@ -48,9 +54,15 @@ def main(argv=None):
                       patience=args.patience, scale=args.scale, dtype=args.dtype,
                       seed=args.seed, mosaic=args.mosaic, close_mosaic=args.close_mosaic,
                       device=args.device, save=True, save_json=True)
-    trainer = Trainer(cfg)
-    state, history = trainer.fit()
-    print(f"finished: {len(history)} epochs, run dir {cfg.run_dir}")
+    joined = init_from_env(args.device)
+    try:
+        trainer = Trainer(cfg)
+        state, history = trainer.fit()
+    finally:
+        if joined:
+            dist.destroy_process_group()
+    if trainer.rank0:
+        print(f"finished: {len(history)} epochs, run dir {cfg.run_dir}")
     return 0
 
 

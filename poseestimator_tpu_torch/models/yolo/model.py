@@ -40,11 +40,24 @@ class BatchNorm2d(nn.BatchNorm2d):
     variance, the one the batch is normalised with. ``nn.BatchNorm2d``
     averages the unbiased one, n / (n - 1) larger per channel for n = B H W
     values; the update is corrected after the fused call, a per-channel
-    operation. Evaluation is ``nn.BatchNorm2d``'s own."""
+    operation. Evaluation is ``nn.BatchNorm2d``'s own.
+
+    ``mesh``, a ``parallel.Mesh`` of more than one rank (set by the data-
+    parallel ``Trainer``), makes the train-mode statistics those of the
+    global batch, as the JAX package's single GSPMD program computes them:
+    the per-channel sums, then the sums of squared deviations from the
+    global mean, are all-reduced through a differentiable all-reduce (so
+    the backward carries the cross-rank terms of the mean and variance),
+    and the running statistics move by the global mean and biased
+    variance."""
+
+    mesh = None
 
     def forward(self, x):
         if not self.training:
             return super().forward(x)
+        if self.mesh is not None and self.mesh.size > 1:
+            return self._global_batch(x)
         prior = self.running_var.clone()
         y = super().forward(x)
         n = x.numel() // x.shape[1]
@@ -53,6 +66,21 @@ class BatchNorm2d(nn.BatchNorm2d):
         # train-mode backward does not read it) and would refuse a new version
         rv = self.running_var.data
         rv.sub_((rv - (1.0 - self.momentum) * prior) / n)
+        return y
+
+    def _global_batch(self, x):
+        mesh = self.mesh
+        n = float(x.numel() // x.shape[1] * mesh.size)  # every rank holds B / size images
+        mean = mesh.all_reduce_grad(x.sum((0, 2, 3))) / n
+        xc = x - mean[None, :, None, None]
+        var = mesh.all_reduce_grad((xc * xc).sum((0, 2, 3))) / n
+        scale = torch.rsqrt(var + self.eps) * self.weight
+        y = xc * scale[None, :, None, None] + self.bias[None, :, None, None]
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(mean.detach(), alpha=m)
+            self.running_var.mul_(1.0 - m).add_(var.detach(), alpha=m)
+            self.num_batches_tracked.add_(1)
         return y
 
 

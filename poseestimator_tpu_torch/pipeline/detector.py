@@ -86,16 +86,8 @@ class Detector:
     def predict_batch(self, imgs, conf: float = 0.25, iou: float = 0.7):
         """A same-size batch (B, H, W, 3) -> ``(Detections, boxes_orig)``,
         each field stacked along a leading batch axis (no masks)."""
-        imgs = self._image(imgs)
-        lbs, metas = zip(*(letterbox(im, self.imgsz) for im in imgs))
-        raw = self.model(torch.stack(lbs).permute(0, 3, 1, 2))
-        boxes, cls, mc = decode_boxes(raw)
-        dets = [nms(boxes[b], cls[b], mc[b], conf_thres=conf, iou_thres=iou,
-                    pre_nms=self.pre_nms, max_det=self.max_det) for b in range(len(lbs))]
-        stacked = Detections(**{f.name: torch.stack([getattr(d, f.name) for d in dets])
-                                for f in fields(Detections)})
-        boxes_orig = torch.stack([boxes_to_original(d.boxes, m) for d, m in zip(dets, metas)])
-        return stacked, boxes_orig
+        return predict_batch(self.model, self._image(imgs), self.imgsz, self.pre_nms,
+                             self.max_det, conf, iou)
 
     def detect_mask(self, img_bgr, class_id: int = 0, conf: float = 0.7) -> list[dict]:
         """Every detection as ``{"mask", "class_id", "conf", "bbox"}``, best
@@ -117,6 +109,23 @@ class Detector:
                         "class_id": int(classes[i]), "conf": float(confs[i]),
                         "bbox": boxes[i].tolist()})
         return out
+
+
+@torch.no_grad()
+def predict_batch(model: YOLO11Seg, imgs: torch.Tensor, imgsz: int, pre_nms: int, max_det: int,
+                  conf: float = 0.25, iou: float = 0.7):
+    """``Detector.predict_batch`` on a model: letterbox each image of the
+    batch (B, H, W, 3) on its device, one forward, DFL decode, per-image
+    NMS -> ``(Detections, boxes_orig)`` stacked along the batch axis."""
+    lbs, metas = zip(*(letterbox(im, imgsz) for im in imgs))
+    raw = model(torch.stack(lbs).permute(0, 3, 1, 2))
+    boxes, cls, mc = decode_boxes(raw)
+    dets = [nms(boxes[b], cls[b], mc[b], conf_thres=conf, iou_thres=iou,
+                pre_nms=pre_nms, max_det=max_det) for b in range(len(lbs))]
+    stacked = Detections(**{f.name: torch.stack([getattr(d, f.name) for d in dets])
+                            for f in fields(Detections)})
+    boxes_orig = torch.stack([boxes_to_original(d.boxes, m) for d, m in zip(dets, metas)])
+    return stacked, boxes_orig
 
 
 def detect_mask(weights_path, image, class_id: int = 0, nc: int = 5, scale: str = "n",

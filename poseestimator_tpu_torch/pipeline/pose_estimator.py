@@ -1,5 +1,5 @@
 """Global pose initialisation by template search (counterpart of
-``poseestimator_tpu/pipeline/pose_estimator.py``, single-device path).
+``poseestimator_tpu/pipeline/pose_estimator.py``).
 
 ``PoseEstimator`` loads the CAD and its template database (rendering it when
 missing), voxel-downsamples every template and computes its FPFH features
@@ -28,6 +28,14 @@ cameras, or ``strict=True``, keep the 1e-6 tolerances everywhere.
 Randomness comes from a ``torch.Generator``; ``draws`` injects the samplers'
 draws (``"dense"``, ``"half"``, ``"views"`` keyed by (stage, chain)) and
 RANSAC's uniforms (``"ransac"``, (templates, 2048, 3)).
+
+The template-axis sharded search (``_search_templates_sharded``, behind
+``PoseEstimator(mesh_devices=)``) runs the same ``_score_templates`` on each
+rank's slice of templates. Every rank first draws the whole search's random
+numbers from the generator in the order the single-device search draws
+them (``_search_draws``) and takes its templates' and chains' share, so the
+result does not depend on the partition and a mesh of one is the
+single-device search bit for bit.
 """
 from __future__ import annotations
 
@@ -43,7 +51,7 @@ from ..geom3d.cloud import PointCloud, centroid
 from ..geom3d.fpfh import compute_fpfh
 from ..geom3d.metrics import alignment_score
 from ..geom3d.normals import estimate_normals
-from ..geom3d.sampling import random_sample, voxel_down_sample
+from ..geom3d.sampling import make_draws, random_sample, voxel_down_sample
 from ..geom3d.se3 import pca_axes, transform_points
 from ..registration.features import match_features
 from ..registration.icp import icp_point_to_point_batched
@@ -106,22 +114,28 @@ class PoseEstimator:
     """Template-search pose initialisation for one CAD model.
 
     ``device`` defaults to the card and raises when there is none;
-    ``device="cpu"`` runs the kernels' plain versions. ``mesh_devices`` (the
-    JAX package's template-axis sharding) is not ported.
+    ``device="cpu"`` runs the kernels' plain versions. ``mesh_devices``, a
+    ``parallel.Mesh``, shards the template axis of the search over the
+    mesh's ``shard_axis`` (the estimator then runs on the mesh's device).
+    The sharded search is SPMD: every rank builds the estimator and calls
+    it with the same observation, and every rank gets the full result.
+    It polishes every chain (``search_final_topk`` does not apply, as in
+    the JAX package), so it equals the single-device search with
+    ``search_final_topk=0``. A ``Tracker`` on a sharded estimator runs on
+    every rank, each stepping the same frames.
     """
 
     def __init__(self, cad_path: str, pcd_path: str, intr, K: Optional[np.ndarray] = None,
                  target_points: int = 200, voxel_size: float = 0.05, seed: int = 0,
-                 view_set: str = "reduced", mesh_devices=None, search_window="auto",
-                 search_score_res: int = 2, search_polish: int = 1, search_final_topk: int = 6,
-                 device: str | torch.device = "cuda"):
-        if mesh_devices is not None:
-            raise NotImplementedError("the sharded template search is not ported")
+                 view_set: str = "reduced", mesh_devices=None, shard_axis: str = "tp",
+                 search_window="auto", search_score_res: int = 2, search_polish: int = 1,
+                 search_final_topk: int = 6, device: str | torch.device = "cuda"):
         mesh = TriangleMesh.load(cad_path)
         if np.max(mesh.extent) >= 1.0:  # millimetres -> metres
             mesh = mesh.scale(0.001, center=np.zeros(3))
         self._setup(mesh, intr, K, target_points, voxel_size, seed, search_window,
-                    search_score_res, search_polish, search_final_topk, device)
+                    search_score_res, search_polish, search_final_topk, device,
+                    mesh_devices, shard_axis)
         self.templates = load_templates(pcd_path, cad_path, view_set=view_set, device=self.device)
         self._prepare_templates()
 
@@ -147,8 +161,11 @@ class PoseEstimator:
         return self
 
     def _setup(self, mesh, intr, K, target_points, voxel_size, seed, search_window,
-               search_score_res, search_polish, search_final_topk, device):
-        self.device = resolve_device(device)
+               search_score_res, search_polish, search_final_topk, device,
+               mesh_devices=None, shard_axis: str = "tp"):
+        # the template axis shards over this parallel.Mesh (None: one device)
+        self.device_mesh, self.shard_axis = mesh_devices, shard_axis
+        self.device = resolve_device(device if mesh_devices is None else mesh_devices.device)
         self.intr = _as_intrinsics(intr, K)
         self.K = self.intr.K if K is None else np.asarray(K).reshape(3, 3)
         self.target_points = target_points
@@ -210,19 +227,45 @@ class PoseEstimator:
             z = float(np.median(pts[val, 2])) if val.any() else 1.0
             win = window_for_object(self.intr.scaled(self.search_score_res),
                                     float(np.linalg.norm(self.mesh.extent)), z)
-        H_pre, H_ref, best, scores, Ts_all = search_templates(
-            dst_cloud.points.to(dev), dst_cloud.valid.to(dev), self._tpl_points, self._tpl_valid,
-            self._tpl_fpfh, self._mesh_v, self._mesh_f, self.intr, obs_sil, have_mask,
-            self.voxel_size, self.generator, win_hw=win, score_res=self.search_score_res,
-            n_polish=self.search_polish, n_final=self.search_final_topk,
-            dst_cap=self._search_cap, draws=draws)
-        H = (H_pre if keep_pre_icp else H_ref).cpu().numpy()
-        i = int(best)
+        dst_pts, dst_valid = dst_cloud.points.to(dev), dst_cloud.valid.to(dev)
+        if self.device_mesh is not None:
+            tp, tv, tf, n_real = self._padded_templates()
+            Hp_all, Hr_all, scores = _search_templates_sharded(
+                self.device_mesh, dst_pts, dst_valid, tp, tv, tf, "mesh", self._mesh_v,
+                self._mesh_f, self.intr, obs_sil, have_mask, self.voxel_size, self.generator,
+                axis=self.shard_axis, win_hw=win, score_res=self.search_score_res,
+                n_polish=self.search_polish, dst_cap=self._search_cap, draws=draws)
+            # drop the pad copies; the winner is picked over the real ones
+            scores, Ts_all = scores[:n_real], Hr_all[:n_real]
+            i = int(torch.argmin(scores))
+            H = (Hp_all[i] if keep_pre_icp else Ts_all[i]).cpu().numpy()
+        else:
+            H_pre, H_ref, best, scores, Ts_all = search_templates(
+                dst_pts, dst_valid, self._tpl_points, self._tpl_valid, self._tpl_fpfh,
+                self._mesh_v, self._mesh_f, self.intr, obs_sil, have_mask, self.voxel_size,
+                self.generator, win_hw=win, score_res=self.search_score_res,
+                n_polish=self.search_polish, n_final=self.search_final_topk,
+                dst_cap=self._search_cap, draws=draws)
+            H = (H_pre if keep_pre_icp else H_ref).cpu().numpy()
+            i = int(best)
         scores = scores.cpu().numpy()
         Ts_all = Ts_all.cpu().numpy()
         src_down = PointCloud(points=self._tpl_points[i], valid=self._tpl_valid[i])
         candidates = [(float(scores[j]), Ts_all[j], int(j)) for j in np.argsort(scores, kind="stable")]
         return H, src_down, candidates
+
+    def _padded_templates(self):
+        """The template stacks padded by repetition to a multiple of the
+        shard axis's size: ``(points, valid, fpfh, n_real)``. Whole copies
+        are repeated, then sliced, so a pad larger than the template count
+        (5 templates on a 16-way axis) pads fully."""
+        n = self._tpl_points.shape[0]
+        pad = (-n) % self.device_mesh.shape[self.shard_axis]
+        if pad == 0:
+            return self._tpl_points, self._tpl_valid, self._tpl_fpfh, n
+        reps = -(-(n + pad) // n)
+        rep = lambda a: torch.cat([a] * reps)[: n + pad]  # noqa: E731
+        return rep(self._tpl_points), rep(self._tpl_valid), rep(self._tpl_fpfh), n
 
     @torch.no_grad()
     def create_template_from_H(self, T_m2c, target_points: Optional[int] = None) -> PointCloud:
@@ -275,30 +318,81 @@ def _prep_dst(dst_pts, dst_valid, intr: Intrinsics, mask_sil, have_mask, voxel, 
     return dst_dense, dst_half, dst_down, dst_feats, obs_depth, mask_sil_r
 
 
+def _search_windows(intr: Intrinsics, win_hw, score_res: int, render_kind: str = "mesh"):
+    """``(intr_r, intr_q, win_r, win_q)``: the scoring view (1 / score_res),
+    the early polish stages' quarter-resolution view, and their object
+    windows (None: full frame; the point splat always renders full frame)."""
+    intr_r = intr.scaled(score_res)
+    intr_q = intr.scaled(4)  # the early polish stages' resolution
+    win_r = (window_dims(intr_r, win_hw, default=(256 // score_res, 256 // score_res))
+             if render_kind == "mesh" else None)
+    win_q = (None if win_r is None else window_dims(
+        intr_q, (max(win_r[0] * score_res // 4, 16), max(win_r[1] * score_res // 4, 128))))
+    return intr_r, intr_q, win_r, win_q
+
+
+def _use_half(intr: Intrinsics, strict: bool) -> bool:
+    """The relaxed regime's resolution gate (see the module docstring)."""
+    intr_q = intr.scaled(4)
+    return (not strict) and intr_q.width * intr_q.height >= 4096
+
+
+def _search_draws(gen: torch.Generator, dst_capacity: int, n_tpl: int, n_polish: int,
+                  intr: Intrinsics, win_hw, score_res: int, strict: bool, render_kind: str,
+                  device, draws: Optional[dict]) -> dict:
+    """Every random number of a search that polishes all its chains, drawn
+    from ``gen`` in the order the single-device search draws them: the
+    dense and half samples, RANSAC's uniforms (n_tpl, 2048, 3), then the
+    predicted views stage by stage, chain by chain. Entries of ``draws``
+    are kept and not drawn, as the single-device search does."""
+    out = dict(draws or {})
+    for name, n in (("dense", 4096), ("half", 2048)):
+        if name not in out:
+            out[name] = make_draws(dst_capacity, min(n, dst_capacity), gen, device)
+    if "ransac" not in out:
+        out["ransac"] = torch.rand((n_tpl, RANSAC_ITERS, 3), generator=gen, device=device)
+    intr_r, intr_q, win_r, win_q = _search_windows(intr, win_hw, score_res, render_kind)
+    early_n = 1024 if _use_half(intr, strict) else 2048
+    views = dict(out.get("views", {}))
+    for s, (ri, win, n) in enumerate(((intr_q, win_q, early_n), (intr_q, win_q, early_n),
+                                      (intr_r, win_r, 2048))):
+        cap = ri.height * ri.width if win is None else win[0] * win[1]
+        for c in range(n_tpl * n_polish):
+            if (s, c) not in views:
+                views[(s, c)] = make_draws(cap, min(n, cap), gen, device)
+    out["views"] = views
+    return out
+
+
 def _score_templates(prep, tpl_pts, tpl_valid, tpl_fpfh, mesh_v, mesh_f, intr: Intrinsics,
                      have_mask, voxel, gen, draws, win_hw="auto", score_res: int = 2,
-                     n_polish: int = 1, n_final=None, strict: bool = False):
+                     n_polish: int = 1, n_final=None, strict: bool = False,
+                     render_kind: str = "mesh"):
     """Score every template against the prepared observation: ``(H_pre (T,
-    4, 4), H_ref (T, 4, 4), scores (T,))``."""
+    4, 4), H_ref (T, 4, 4), scores (T,))``. ``render_kind``: the predicted
+    views' instrument, ``"mesh"`` (``mesh_v``, ``mesh_f``: the exact raster,
+    windowed) or ``"points"`` (``mesh_v``, ``mesh_f`` = points, valid: the
+    point splat over the full frame, for point-cloud CADs)."""
     dst_dense, dst_half, dst_down, dst_feats, obs_depth, mask_sil_r = prep
     dev = tpl_pts.device
     obs_sil_r = obs_depth > 0
-    intr_r = intr.scaled(score_res)
-    intr_q = intr.scaled(4)  # the early polish stages' resolution
     # object windows: every predicted view and view score renders only a
     # window around the hypothesis's projected object; the window score
     # equals the full-frame score whenever the window covers the predicted
     # silhouette (pixels outside enter through their full-frame totals)
-    win_r = window_dims(intr_r, win_hw, default=(256 // score_res, 256 // score_res))
-    win_q = (None if win_r is None else window_dims(
-        intr_q, (max(win_r[0] * score_res // 4, 16), max(win_r[1] * score_res // 4, 128))))
+    intr_r, intr_q, win_r, win_q = _search_windows(intr, win_hw, score_res, render_kind)
     n_obs_total = torch.clamp(obs_sil_r.sum(), min=1)
     n_mask_total = mask_sil_r.sum()
     view_draws = draws.get("views", {})
 
+    def render_full(T, ri):
+        if render_kind == "points":
+            return render_depth(mesh_v, mesh_f, T, ri, near=0.01, far=5.0)
+        return render_depth_mesh(mesh_v, mesh_f, T, ri, near=0.01, far=5.0)
+
     def predicted_view(T, ri, n, win, key):
         if win is None:
-            d_r = render_depth_mesh(mesh_v, mesh_f, T, ri, near=0.01, far=5.0)
+            d_r = render_full(T, ri)
             view = backproject_depth(d_r, ri, depth_min=0.01, depth_max=5.0)
         else:
             o = window_origin(mesh_v, T, ri, win[0], win[1])
@@ -309,7 +403,7 @@ def _score_templates(prep, tpl_pts, tpl_valid, tpl_fpfh, mesh_v, mesh_f, intr: I
 
     def view_score(T):
         if win_r is None:
-            dep = render_depth_mesh(mesh_v, mesh_f, T, intr_r, near=0.01, far=5.0)
+            dep = render_full(T, intr_r)
             obs_d, obs_s, msk = obs_depth, obs_sil_r, mask_sil_r
             out_mask = out_obs = 0
         else:
@@ -344,8 +438,7 @@ def _score_templates(prep, tpl_pts, tpl_valid, tpl_fpfh, mesh_v, mesh_f, intr: I
     corr_thresh = _f32(noise_bound * np.float32(1.5))
     params = TeaserParams(noise_bound=float(noise_bound))
     n_tpl = tpl_pts.shape[0]
-    # resolution gate of the relaxed regime (see the module docstring)
-    use_half = (not strict) and intr_q.width * intr_q.height >= 4096
+    use_half = _use_half(intr, strict)
 
     # 5 hypotheses per template: 4 PCA sign alignments + FPFH/RANSAC/TEASER
     midx, mok = match_features(tpl_fpfh, tpl_valid, dst_feats, dst_down.valid)
@@ -422,19 +515,64 @@ def search_templates(dst_pts, dst_valid, tpl_pts, tpl_valid, tpl_fpfh, mesh_v, m
                      intr: Intrinsics, mask_sil, have_mask: bool, voxel, gen: torch.Generator,
                      win_hw="auto", score_res: int = 2, n_polish: int = 1, n_final=None,
                      dst_cap: int = SEARCH_CAP, strict: bool = False,
-                     draws: Optional[dict] = None):
+                     draws: Optional[dict] = None, render_kind: str = "mesh"):
     """The single-device template search: observation prep, every
     template's score, the winner. Returns ``(H_pre (4, 4), H_ref (4, 4),
-    best (), scores (T,), H_ref_all (T, 4, 4))``."""
+    best (), scores (T,), H_ref_all (T, 4, 4))``. ``render_kind="points"``
+    takes ``mesh_v``, ``mesh_f`` as a point cloud's points and valid."""
     draws = draws or {}
     voxel = _f32(voxel)
     prep = _prep_dst(dst_pts, dst_valid, intr, mask_sil, have_mask, voxel, gen, draws,
                      score_res=score_res, dst_cap=dst_cap)
     H_pre, H_ref, scores = _score_templates(
         prep, tpl_pts, tpl_valid, tpl_fpfh, mesh_v, mesh_f, intr, have_mask, voxel, gen, draws,
-        win_hw=win_hw, score_res=score_res, n_polish=n_polish, n_final=n_final, strict=strict)
+        win_hw=win_hw, score_res=score_res, n_polish=n_polish, n_final=n_final, strict=strict,
+        render_kind=render_kind)
     best = torch.argmin(scores)
     return H_pre[best], H_ref[best], best, scores, H_ref
+
+
+@torch.no_grad()
+def _search_templates_sharded(mesh, dst_pts, dst_valid, tpl_pts, tpl_valid, tpl_fpfh,
+                              render_kind: str, ra, rb, intr: Intrinsics, mask_sil,
+                              have_mask: bool, voxel, gen: torch.Generator, axis: str = "tp",
+                              win_hw="auto", score_res: int = 2, n_polish: int = 1,
+                              dst_cap: int = SEARCH_CAP, strict: bool = False,
+                              draws: Optional[dict] = None):
+    """The template-axis sharded search on a ``parallel.Mesh``. Every rank
+    passes the full inputs (T divisible by the mesh size; ``PoseEstimator``
+    pads by repetition). The observation is prepared on every rank and
+    replicated from rank 0; each rank scores its slice of templates with
+    ``_score_templates`` on its share of the search's draws (drawn whole
+    from ``gen``, so ``gen`` ends where the single-device search leaves it),
+    polishing every chain; the slices are all-gathered. Returns the full
+    ``(H_pre (T, 4, 4), H_ref (T, 4, 4), scores (T,))`` on every rank."""
+    from ..parallel.mesh import check_divisible, replicate
+
+    n_tpl = tpl_pts.shape[0]
+    check_divisible(n_tpl, mesh.shape[axis], "template count")
+    dev = mesh.device
+    voxel = _f32(voxel)
+    draws = _search_draws(gen, dst_pts.shape[0], n_tpl, n_polish, intr, win_hw, score_res,
+                         strict, render_kind, dev, draws)
+    dst_dense, dst_half, dst_down, feats, obs_depth, mask_sil_r = _prep_dst(
+        dst_pts.to(dev), dst_valid.to(dev), intr, mask_sil.to(dev), have_mask, voxel, gen,
+        draws, score_res=score_res, dst_cap=dst_cap)
+    clouds = [replicate(mesh, [c.points, c.valid]) for c in (dst_dense, dst_half)]
+    down = replicate(mesh, [dst_down.points, dst_down.valid, dst_down.normals])
+    prep = (PointCloud(*clouds[0]), PointCloud(*clouds[1]),
+            PointCloud(points=down[0], valid=down[1], normals=down[2]),
+            *replicate(mesh, [feats, obs_depth, mask_sil_r]))
+    sl = mesh.slice_of(n_tpl)
+    c0, nc = sl.start * n_polish, (sl.stop - sl.start) * n_polish
+    mine = {"ransac": draws["ransac"][sl],
+            "views": {(st, c - c0): d for (st, c), d in draws["views"].items()
+                      if c0 <= c < c0 + nc}}
+    H_pre, H_ref, scores = _score_templates(
+        prep, tpl_pts[sl].to(dev), tpl_valid[sl].to(dev), tpl_fpfh[sl].to(dev), ra.to(dev),
+        rb.to(dev), intr, have_mask, voxel, gen, mine, win_hw=win_hw, score_res=score_res,
+        n_polish=n_polish, n_final=None, strict=strict, render_kind=render_kind)
+    return mesh.all_gather(H_pre), mesh.all_gather(H_ref), mesh.all_gather(scores)
 
 
 @torch.no_grad()

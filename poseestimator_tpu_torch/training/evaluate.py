@@ -134,16 +134,22 @@ def eval_grade(detector, pre_nms: int = EVAL_PRE_NMS, max_det: int = EVAL_MAX_DE
 
 def evaluate_detector(detector, samples, imgsz: int = 640, conf: float = 0.001,
                       max_instances: int = 300, use_masks: bool = False,
-                      eval_pool: bool = True) -> dict:
+                      eval_pool: bool = True, mesh=None) -> dict:
     """Run the port's ``Detector`` over (image_path, label_path) samples
     and compute mAP against the YOLO-seg labels; ``eval_pool`` raises the
-    candidate caps to mAP grade first (``eval_grade``)."""
+    candidate caps to mAP grade first (``eval_grade``). Under ``mesh`` (a
+    ``parallel.Mesh``) each rank runs its contiguous share of the samples
+    and the mAP is computed from every rank's gathered predictions."""
     from .data import parse_label_file
 
     if eval_pool:
         detector = eval_grade(detector)
+    share = samples
+    if mesh is not None and mesh.size > 1:
+        k = -(-len(samples) // mesh.size)
+        share = samples[mesh.rank * k:(mesh.rank + 1) * k]
     images = []
-    for img_path, lbl_path in samples:
+    for img_path, lbl_path in share:
         img = read_image(img_path, IMREAD_COLOR)
         h, w = img.shape[:2]
         det, masks, boxes_orig = detector(img, conf=conf, with_masks=use_masks)
@@ -165,4 +171,6 @@ def evaluate_detector(detector, samples, imgsz: int = 640, conf: float = 0.001,
             gt_classes=np.asarray(gt_classes, np.int64),
             pred_masks=masks[:n].cpu().numpy() if use_masks else None,
             gt_masks=np.asarray(gt_masks) if use_masks and gt_masks else None))
+    if mesh is not None and mesh.size > 1:
+        images = [im for part in mesh.gather_objects(images) for im in part]
     return compute_map(images, use_masks=use_masks)

@@ -60,13 +60,19 @@ def bce(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
 
 def segmentation_loss(raw: dict, gt_boxes: torch.Tensor, gt_classes: torch.Tensor,
                       gt_masks: torch.Tensor, gt_valid: torch.Tensor, box_gain: float = 7.5,
-                      cls_gain: float = 0.5, dfl_gain: float = 1.5, reg_max: int = 16):
+                      cls_gain: float = 0.5, dfl_gain: float = 1.5, reg_max: int = 16,
+                      reduce=None):
     """Total loss and its parts for one batch of raw head outputs.
 
     gt_boxes (B, M, 4) xyxy letterbox px, gt_classes (B, M), gt_masks
     (B, M, S/4, S/4), gt_valid (B, M). The mask loss evaluates each
     image's top M x ``TAL_TOPK`` weighted anchors only, a (B, K, Hp, Wp)
-    product, never (B, A, Hp, Wp)."""
+    product, never (B, A, Hp, Wp).
+
+    ``reduce`` (a sum over ranks, e.g. ``Mesh.all_reduce``): the batch is
+    one rank's share of a global batch; the normaliser ``n_pos`` is then
+    the global batch's, so the parts are this share's terms of the global
+    loss and sum over ranks to it."""
     shapes = [x.shape[1:3] for x in raw["box"]]
     anchors, stride_pa = make_anchors(shapes, STRIDES, raw["box"][0].device)
     anchors_px = anchors * stride_pa[:, None]
@@ -83,7 +89,8 @@ def segmentation_loss(raw: dict, gt_boxes: torch.Tensor, gt_classes: torch.Tenso
     # loss: with a gradient through them the model shrinks its own targets
     fg, gt_idx, t_scores, t_boxes = assign(cls_prob.detach(), pred_boxes_px.detach(),
                                            anchors_px, gt_boxes, gt_classes, gt_valid)
-    n_pos = torch.clamp(t_scores.sum(), min=1.0)
+    pos = t_scores.sum()
+    n_pos = torch.clamp(pos if reduce is None else reduce(pos.detach()), min=1.0)
     l_cls = bce(cls_flat, t_scores).sum() / n_pos
 
     w = t_scores.sum(-1)  # (B, A)

@@ -1,8 +1,19 @@
 """YOLO11-seg trainer (counterpart of ``poseestimator_tpu/training/trainer.py``):
 the reference's operating point (epochs 300, imgsz 640, batch 16, Adam lr0
 1e-3, patience 10, save + save_json, project/name run dirs, resume) on one
-device, with optax's update laws reproduced, an EMA of the weights and
-``torch.save`` checkpoints.
+device or data-parallel over a ``parallel.Mesh``, with optax's update laws
+reproduced, an EMA of the weights and ``torch.save`` checkpoints.
+
+Data parallelism is the JAX package's single GSPMD program over the global
+batch, not DDP's defaults: rank 0 loads each global batch (the single-
+device loader's, draw for draw) and scatters the slices; BatchNorm takes
+its statistics from the global batch, forward and backward
+(``models.yolo.model.BatchNorm2d``); the loss normaliser is the global
+batch's, and the per-rank gradients are summed. Weights, optimiser state
+and EMA stay replicated and equal on every rank; validation losses are
+reduced across ranks and mAP is computed from the gathered predictions;
+only rank 0 writes checkpoints, TensorBoard and the JSON. A mesh of one
+rank runs the single-device program.
 
 The optimiser is optax's, written out: the learning rate of update t
 (counted from 0) is ``join_schedules`` of a linear warm-up from 0 and a
@@ -28,7 +39,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..models.yolo.model import YOLO11Seg, init_train_
+from ..models.yolo.model import BatchNorm2d, YOLO11Seg, init_train_
 from ..models.yolo.weights import variables_to_state_dict
 from .data import Batch, DataLoader, DatasetSpec, list_samples, load_dataset_yaml
 from .loss import segmentation_loss
@@ -64,7 +75,7 @@ class TrainConfig:
     resume: bool = False
     save: bool = True
     save_json: bool = True
-    device: Any = "cuda"  # the torch device; a list of devices raises
+    device: Any = "cuda"  # the torch device; a list of devices raises (see check_device)
     scale: str = "n"
     dtype: str = "float32"
     ema: bool = True  # keep an EMA of the weights for eval and checkpoints
@@ -84,11 +95,13 @@ class TrainConfig:
 
 
 def check_device(device) -> torch.device:
-    """One torch device; a multi-device request is not ported yet."""
+    """One torch device. Several devices are several processes: run the
+    training under ``torchrun --nproc_per_node N`` (the Trainer takes the
+    initialised world) or pass ``Trainer(mesh=)``; a device list raises."""
     if isinstance(device, (list, tuple)) or (isinstance(device, str) and "," in device):
         raise NotImplementedError(
-            f"multi-device training ({device!r}) is not ported yet: ROADMAP Queue 1 item 4 "
-            "(parallel/, torch.distributed)")
+            f"device list {device!r}: data-parallel training runs one process per device; "
+            "launch with torchrun --nproc_per_node N, or pass Trainer(mesh=parallel.make_mesh())")
     return resolve_device(device)
 
 
@@ -168,18 +181,35 @@ def make_optimizer(cfg: TrainConfig, steps_per_epoch: int) -> Optimizer:
 
 
 class Trainer:
-    """Single-device YOLO11-seg training on ``cfg.device`` (the card by
-    default; ``"cpu"`` on request)."""
+    """YOLO11-seg training on ``cfg.device`` (the card by default; ``"cpu"``
+    on request), data-parallel over ``mesh`` (a ``parallel.Mesh``; None: the
+    initialised world when there is one, else the single device). Under a
+    mesh every rank builds the Trainer and runs the same calls; the device
+    is the mesh's and ``cfg.batch`` is the global batch."""
 
-    def __init__(self, cfg: TrainConfig, nc: Optional[int] = None):
+    def __init__(self, cfg: TrainConfig, nc: Optional[int] = None, mesh=None):
         if cfg.dtype != "float32":
             raise NotImplementedError(
                 f"dtype {cfg.dtype!r}: the port's detector runs float32 only")
         self.cfg = cfg
-        self.device = check_device(cfg.device)
+        if mesh is None and torch.distributed.is_available() \
+                and torch.distributed.is_initialized():
+            from ..parallel.mesh import make_mesh
+
+            check_device(cfg.device)
+            mesh = make_mesh("dp", device=cfg.device)
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        self.rank0 = self.mesh is None or self.mesh.rank == 0
+        self.device = check_device(cfg.device) if mesh is None else mesh.device
+        if self.mesh is not None and cfg.batch % self.mesh.size:
+            raise ValueError(f"batch {cfg.batch} is not divisible by the mesh size "
+                             f"{self.mesh.size}")
         self.spec: DatasetSpec = load_dataset_yaml(cfg.data)
         self.nc = nc if nc is not None else max(self.spec.nc, 1)
         self.model = YOLO11Seg(nc=self.nc, scale=cfg.scale).to(self.device)
+        for m in self.model.modules():
+            if isinstance(m, BatchNorm2d):
+                m.mesh = self.mesh
         self._eval_model = None
         self.train_samples = list_samples(self.spec, "train")
         self.val_samples = list_samples(self.spec, "val") or self.train_samples
@@ -193,6 +223,12 @@ class Trainer:
 
     # --- state ------------------------------------------------------------
     def _bind(self, opt_state=None, step: int = 0, ema=None) -> TrainState:
+        if self.mesh is not None:  # every rank starts from rank 0's weights
+            with torch.no_grad():
+                for t in self.model.state_dict().values():
+                    t.copy_(self.mesh.broadcast(t))
+                if ema is not None:
+                    ema = {k: self.mesh.broadcast(v) for k, v in ema.items()}
         params = dict(self.model.named_parameters())
         stats = dict(self.model.named_buffers())
         return TrainState(
@@ -216,7 +252,11 @@ class Trainer:
         return self._bind()
 
     # --- steps ------------------------------------------------------------
-    def _tensors(self, batch: Batch):
+    def _tensors(self, batch: Optional[Batch]):
+        """The step's tensors on this device; under a mesh this rank's slice
+        of rank 0's ``batch`` (None on the other ranks)."""
+        if self.mesh is not None:
+            return self._scatter(batch)
         dev = self.device
         return (torch.from_numpy(np.ascontiguousarray(batch.images)).to(dev).permute(0, 3, 1, 2),
                 torch.from_numpy(batch.boxes).to(dev),
@@ -224,14 +264,46 @@ class Trainer:
                 torch.from_numpy(batch.masks).to(dev),
                 torch.from_numpy(batch.inst_valid).to(dev))
 
+    def _scatter(self, batch: Optional[Batch]):
+        c, mesh = self.cfg, self.mesh
+        B, S, M = c.batch, c.imgsz, c.max_instances
+        fields = (("images", (B, S, S, 3), torch.float32), ("boxes", (B, M, 4), torch.float32),
+                  ("classes", (B, M), torch.int64),
+                  ("masks", (B, M, S // 4, S // 4), torch.float32),
+                  ("inst_valid", (B, M), torch.bool))
+        out = []
+        for name, shape, dtype in fields:
+            full = None
+            if mesh.rank == 0:
+                full = torch.from_numpy(np.ascontiguousarray(getattr(batch, name))).to(dtype)
+            out.append(mesh.scatter(full, shape, dtype))
+        out[0] = out[0].permute(0, 3, 1, 2)
+        return tuple(out)
+
+    def _reduce_parts(self, parts: dict) -> dict:
+        """This rank's loss parts -> the global batch's (``n_pos`` is global
+        already)."""
+        parts = {k: v.detach() for k, v in parts.items()}
+        if self.mesh is None:
+            return parts
+        names = [k for k in parts if k != "n_pos"]
+        summed = self.mesh.all_reduce(torch.stack([parts[k] for k in names]))
+        return {**dict(zip(names, summed)), "n_pos": parts["n_pos"]}
+
     def _train_step(self, state: TrainState, images, boxes, classes, masks, inst_valid):
         """One update: forward in train mode (BN statistics move), loss,
-        autograd, the optimiser, then the EMA. -> (state, parts)."""
+        autograd, the optimiser, then the EMA. -> (state, parts). Under a
+        mesh: this rank's slice, the global normaliser, the gradients summed
+        over ranks."""
         self.model.train()
         params = list(state.params.values())
         out = self.model(images)
-        total, parts = segmentation_loss(out, boxes, classes, masks, inst_valid)
+        reduce = None if self.mesh is None else self.mesh.all_reduce
+        total, parts = segmentation_loss(out, boxes, classes, masks, inst_valid, reduce=reduce)
         grads = torch.autograd.grad(total, params)
+        if self.mesh is not None:
+            flat = self.mesh.all_reduce(torch.cat([g.reshape(-1) for g in grads]))
+            grads = [f.view_as(p) for f, p in zip(flat.split([p.numel() for p in params]), params)]
         self.last_lr = self.tx.update(params, list(grads), state.opt_state)
         if state.ema_params is not None:
             step_f = np.float32(state.step + 1)
@@ -242,7 +314,7 @@ class Trainer:
                 torch._foreach_mul_(ema, d)
                 torch._foreach_add_(ema, params, alpha=1.0 - d)
         state.step += 1
-        return state, {k: v.detach() for k, v in parts.items()}
+        return state, self._reduce_parts(parts)
 
     def _eval_weights(self, state: TrainState) -> torch.nn.Module:
         """A model in eval mode holding the EMA weights (the raw ones
@@ -261,23 +333,34 @@ class Trainer:
     @torch.no_grad()
     def _eval_step(self, state: TrainState, images, boxes, classes, masks, inst_valid):
         out = self._eval_weights(state)(images)
-        _, parts = segmentation_loss(out, boxes, classes, masks, inst_valid)
-        return parts
+        reduce = None if self.mesh is None else self.mesh.all_reduce
+        _, parts = segmentation_loss(out, boxes, classes, masks, inst_valid, reduce=reduce)
+        return self._reduce_parts(parts)
+
+    def _batches(self, loader):
+        """The loader's batches on rank 0; as many Nones on the others."""
+        return iter(loader) if self.rank0 else (None for _ in range(len(loader)))
 
     # --- loops ------------------------------------------------------------
     def train_epoch(self, state: TrainState):
         metrics = []
-        for batch in self.loader:
+        for batch in self._batches(self.loader):
             state, parts = self._train_step(state, *self._tensors(batch))
             metrics.append(parts)
         return state, _mean_parts(metrics)
 
     def evaluate(self, state: TrainState):
-        return _mean_parts([self._eval_step(state, *self._tensors(b)) for b in self.val_loader])
+        return _mean_parts([self._eval_step(state, *self._tensors(b))
+                            for b in self._batches(self.val_loader)])
 
     def fit(self, state: Optional[TrainState] = None, log=print, tensorboard: bool = True):
         cfg = self.cfg
-        os.makedirs(cfg.run_dir, exist_ok=True)
+        if not self.rank0:  # one writer: rank 0 logs and saves
+            log, tensorboard = (lambda *a, **k: None), False
+            cfg = copy.copy(cfg)
+            cfg.save = cfg.save_json = False
+        else:
+            os.makedirs(cfg.run_dir, exist_ok=True)
         tb = None
         if tensorboard:
             try:  # optional TensorBoard scalars; results.json is always written
@@ -388,7 +471,7 @@ class Trainer:
         else:
             det.model.load_state_dict(self.export_variables(state), strict=True)
         samples = self.val_samples[: self.cfg.val_map_limit]
-        return evaluate_detector(det, samples, imgsz=self.cfg.imgsz, conf=conf)
+        return evaluate_detector(det, samples, imgsz=self.cfg.imgsz, conf=conf, mesh=self.mesh)
 
 
 def _mean_parts(metrics: list) -> dict:

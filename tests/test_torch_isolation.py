@@ -1,5 +1,6 @@
 """The port stands alone: importing ``poseestimator_tpu_torch`` (every
-module) and ``chip_smoke.py`` loads neither ``jax`` nor ``poseestimator_tpu``,
+module, ``parallel`` among them) and ``chip_smoke.py`` loads neither ``jax``
+nor ``poseestimator_tpu``,
 and works with ``jax``, flax, optax, orbax, OpenCV, PIL, PyYAML, imageio and
 pyrealsense2 made unimportable; every app builds its parser; the entry
 points, the apps and the trainer and generator included, refuse to run
@@ -85,7 +86,9 @@ def test_port_imports_no_jax_and_needs_cuda_unless_cpu():
               "utils.overlay", "utils.yaml_subset", "utils.config", "utils.profiling",
               "models.yolo.contours", "utils.imgproc", "training.assigner", "training.loss",
               "training.data", "training.trainer", "training.evaluate", "training.synth",
-              "apps.generate", "apps.train", "apps.val"):
+              "apps.generate", "apps.train", "apps.val", "parallel", "parallel.mesh",
+              "parallel.bigcloud", "parallel.registration", "parallel.tracking",
+              "parallel.serving"):
         assert f"poseestimator_tpu_torch.{m}" in res["modules"]
     assert not res["native_touched"]  # importing builds and loads nothing
     assert res["jax"] == [], res["jax"]

@@ -447,3 +447,39 @@ def test_batched_raster_kernel_at_the_synth_shapes(with_icosphere):
     torch.cuda.synchronize()
     assert traster.raster_batched_stats.launches == before + 2
     assert int((d[2] > 0).sum()) == 0 and int((d[0] > 0).sum()) > 100
+
+
+def _nccl_chamfer_rank(out_path):
+    """Rank body of the world-1 NCCL mesh below (module level: the launcher
+    re-imports it in the child)."""
+    from poseestimator_tpu_torch.geom3d.cloud import PointCloud
+    from poseestimator_tpu_torch.geom3d.metrics import chamfer_distance
+    from poseestimator_tpu_torch.parallel import make_mesh, sharded_chamfer
+
+    mesh = make_mesh("dp")
+    g = torch.Generator(device=mesh.device).manual_seed(0)
+    a = torch.randn(4096, 3, device=mesh.device, generator=g)
+    b = a + 0.01 * torch.randn(4096, 3, device=mesh.device, generator=g)
+    ones = torch.ones(4096, dtype=torch.bool, device=mesh.device)
+    before = tnn.fused_nn_stats.launches
+    got = float(sharded_chamfer(mesh, a, ones, b, ones))
+    launches = tnn.fused_nn_stats.launches - before
+    ref = float(chamfer_distance(PointCloud(a.cpu(), ones.cpu()), PointCloud(b.cpu(), ones.cpu())))
+    with open(out_path, "w") as f:
+        json.dump({"backend": mesh.backend, "size": mesh.size, "device": str(mesh.device),
+                   "chamfer": got, "plain": ref, "launches": launches}, f)
+
+
+@pytest.mark.cuda
+def test_sharded_chamfer_on_a_world_one_nccl_mesh(tmp_path):
+    """``sharded_chamfer`` on a one-rank NCCL mesh launches K1 once per
+    direction and matches the plain single-device Chamfer to 1e-6."""
+    _need_card()
+    from poseestimator_tpu_torch.parallel import launch
+
+    out = tmp_path / "chamfer.json"
+    launch(_nccl_chamfer_rank, 1, "nccl", "cuda", init_file=str(tmp_path / "rdv"),
+           args=(str(out),))
+    r = json.loads(out.read_text())
+    assert (r["backend"], r["size"], r["device"], r["launches"]) == ("nccl", 1, "cuda:0", 2)
+    assert abs(r["chamfer"] - r["plain"]) <= 1e-6 * r["plain"]

@@ -314,11 +314,11 @@ def test_optimizer_law_and_schedule_match_optax(opt, tmp_path, dataset):
 
 def test_training_config_limits(dataset):
     """bfloat16 and device lists raise ``NotImplementedError`` (the latter
-    naming ROADMAP Queue 1 item 4); every JAX ``TrainConfig`` field exists
-    with its default, ``device`` aside."""
+    pointing to torchrun and ``Trainer(mesh=)``); every JAX ``TrainConfig``
+    field exists with its default, ``device`` aside."""
     with pytest.raises(NotImplementedError, match="float32"):
         ptrainer.Trainer(ptrainer.TrainConfig(data=dataset, dtype="bfloat16", device="cpu"))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+    with pytest.raises(NotImplementedError, match="torchrun.*mesh="):
         ptrainer.Trainer(ptrainer.TrainConfig(data=dataset, device="0,1"))
     j, p = jtrainer.TrainConfig(data=dataset), ptrainer.TrainConfig(data=dataset)
     assert set(j.__dataclass_fields__) == set(p.__dataclass_fields__)
