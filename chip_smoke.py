@@ -125,9 +125,9 @@ port's two paths and checks their accuracy against ground truth:
   with the apps phase's database: world 1 bit-equal to the single-device
   estimator without the final prune (``search_final_topk=0``), world 2
   the same winner and scores within 1e-5, winner ADD-S < 1.5 cm; then
-  ``sharded_template_search`` on the 16-template synthetic fixture, gated
-  as the dry run gates it (the winner's ADD < 0.15 m) and world 1
-  bit-equal to ``search_templates``, world 2's score differences printed;
+  ``sharded_template_search`` on the 16-template synthetic fixture, both
+  worlds bit-equal to ``search_templates`` (the batched registration's
+  sums over points run in an order fixed by the point count);
   (p3) ``sharded_multi_track``: four tracks of the L-shape from perturbed
   poses, three steps on one frame, bit-equal to the unsharded batched
   step at both world sizes, each track's ADD below 0.85 of its start and
@@ -143,7 +143,25 @@ port's two paths and checks their accuracy against ground truth:
   their plain versions and timed.
 
 The search phase also runs one search twice from one generator state on
-observation (b) and demands bit-equal poses and rankings.
+observation (b) and demands bit-equal poses and rankings. After it, the
+16-template synthetic search's four batched ICPs (80 chains x 128 points,
+16 x 768, 16 x 768, 16 x 2048) are run again on half their chains and on
+single chains, and ``kabsch_batched`` on their final poses: every chain
+bit-equal to itself in the whole batch.
+
+The bfloat16 detector and training: (b1) the main path's 30 frames again
+through ``FusedFrame`` over ``Detector(dtype="bfloat16")`` (the same
+seeded weights), ADD-S < 1.5 cm, K2 once a frame and K1 sum(n_iters + 1),
+printed beside the float32 run, and the network's forward device ms,
+float32 and bfloat16, at 640 with batch 1 and 8; (b2) bfloat16 against
+float32 detections on 8 images at confidence 0, sorted scores within 0.03,
+and per anchor before NMS the decoded boxes within 1 px, the class
+probabilities within 0.03 and the masks of the 8 best anchors differing at
+<= 1% of their pixels; (b3) after the training phase, two train steps at 640 and batch 16 on
+(t1)'s data in float32 and in bfloat16 from one init (finite bfloat16
+parts; step ms and peak memory); (b4) in the apps phase, ``main_image``
+again through ``poseestimator_tpu_torch.compat.main_image``, equal to
+(a1) (pose, Chamfers, metrics, overlay).
 
 Any failed phase exits nonzero.
 
@@ -611,6 +629,272 @@ def search_phase(torch, dev, kc, fnn, rs, intr, tmp: str, profile_path=None) -> 
         fail(f"search near a template view: ADD-S {b:.4f} cm > 0.1 x diag ({0.1 * diag_cm:.3f} cm)")
     return {"build": build, "scenes": results, "diag_cm": diag_cm,
             "nn_inputs": nn_inputs, "raster_inputs": raster_inputs}
+
+
+def forward_ms(torch, model, x) -> dict:
+    """Device ms of one no-grad forward of ``model`` on ``x``: from a
+    replayed CUDA graph (``device_ms``), or, should the capture fail, the
+    median of CUDA events around single calls (host gaps included)."""
+    with torch.no_grad():
+        try:
+            return {"ms": device_ms(torch, lambda: model(x), launches=10, reps=10),
+                    "method": "graph replay"}
+        except RuntimeError as e:
+            torch.cuda.synchronize()
+            return {"ms": call_ms(torch, lambda: model(x), reps=20, warmup=3),
+                    "method": f"events (graph capture failed: {str(e)[:80]})"}
+
+
+def bf16_phase(torch, dev, fnn, rs, model, verts, faces, intr, win, color, depths, T0, T_true,
+               pts, f32: dict, card: str) -> dict:
+    """(b1) The main path's frames again through ``FusedFrame`` over
+    ``Detector(dtype="bfloat16")`` built from the same seeded weights, the
+    launch counts set to 0 just before and read just after: ADD-S within its
+    budget, K2 once a frame, K1 sum(n_iters + 1), every frame detected;
+    printed beside the float32 run's ``f32`` (frame ms, launches, ADD-S).
+    Then the network's forward alone, float32 and bfloat16, at 640 with
+    batch 1 and 8. (b2) bfloat16 against float32 detections on 8 images at
+    640 and confidence 0, of the seeded weights with their BatchNorm
+    statistics and biases drawn from a numpy seed: each image's sorted
+    scores within 0.03 (the JAX package's own bfloat16-to-float32 bound).
+    These scores sit near 0.56 and tie in bfloat16 (its step there is
+    2^-8), so the detection that leads is the tie order's choice, and the
+    top detections' boxes are printed, not gated. Per anchor instead, before
+    NMS, on the same letterboxed images: the decoded boxes within 1 px (the
+    JAX package's own bfloat16-to-float32 gap at 640, on the CPU: 0.80 px)
+    and the class probabilities within 0.03; and the masks of each image's
+    8 best float32 anchors, each dtype from its own coefficients, boxes and
+    prototypes, differing at <= 1% of their pixels, their probabilities
+    before the threshold within 0.01."""
+    from poseestimator_tpu_torch.pipeline.detector import Detector
+    from poseestimator_tpu_torch.pipeline.tracking import FusedFrame
+
+    sd = model.state_dict()
+    dets = {dt: Detector(sd, nc=5, imgsz=640, dtype=dt, device=dev)
+            for dt in ("float32", "bfloat16")}
+    frame = FusedFrame(dets["bfloat16"].model, verts, faces, intr, win_hw=win, imgsz=640,
+                       max_det=32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    frame(color, depths[0], T0, mask_union=depths[0] > 0, generator=gen)  # warm-up
+    torch.cuda.synchronize()
+    fnn.fused_nn_stats.launches = 0
+    rs.raster_stats.launches = 0
+    T_est, frame_ms, n_iters, oks, poses = T0, [], [], [], []
+    for k in range(FRAMES):
+        t = time.perf_counter()
+        res = frame(color, depths[k], T_est, conf=0.25, icp_dist=0.01,
+                    mask_union=depths[k] > 0, generator=gen)
+        torch.cuda.synchronize()
+        frame_ms.append((time.perf_counter() - t) * 1e3)
+        T_est = res.T
+        poses.append(T_est)
+        n_iters.append(res.n_iters)
+        oks.append(bool(res.ok))
+    k1, k2 = fnn.fused_nn_stats.launches, rs.raster_stats.launches
+    adds = [adds_cm(torch, pts, Te, Tt) for Te, Tt in zip(poses, T_true)]
+    rng = np.random.default_rng(5)
+    fwd = {}
+    for B in (1, 8):
+        x = torch.from_numpy(rng.uniform(0, 1, (B, 3, 640, 640)).astype(np.float32)).to(dev)
+        for dt, det in dets.items():
+            fwd[f"{dt} B={B}"] = forward_ms(torch, det.model, x)
+    b1 = {"part": "b1 main path, Detector(dtype=bfloat16)", "card": card, "frames": FRAMES,
+          "frame_ms_median": float(np.median(frame_ms)), "frame_ms_min": float(min(frame_ms)),
+          "frame_ms_median_float32": f32["frame_ms_median"],
+          "frame_ms_min_float32": f32["frame_ms_min"],
+          "adds_mean_cm": float(np.mean(adds)), "adds_max_cm": float(max(adds)),
+          "adds_mean_cm_float32": f32["adds_mean_cm"], "adds_budget_cm": ADDS_BUDGET_CM,
+          "icp_n_iters_mean": float(np.mean(n_iters)), "k1_launches": k1, "k2_launches": k2,
+          "k1_launches_float32": f32["k1_launches"], "k2_launches_float32": f32["k2_launches"],
+          "ok": sum(oks), "detector_forward_device_ms_640": fwd}
+    log(json.dumps({"bf16": b1}))
+    if k2 != FRAMES or k1 != sum(n + 1 for n in n_iters):
+        fail(f"(b1): K1 {k1} (want {sum(n + 1 for n in n_iters)}), K2 {k2} (want {FRAMES})")
+    if not all(oks) or not np.isfinite(np.asarray([P.cpu().numpy() for P in poses])).all():
+        fail(f"(b1): {FRAMES - sum(oks)} frames undetected, or a non-finite pose")
+    if not b1["adds_mean_cm"] <= ADDS_BUDGET_CM:
+        fail(f"(b1): mean ADD-S {b1['adds_mean_cm']:.4f} cm > {ADDS_BUDGET_CM} cm")
+
+    imgs = torch.from_numpy(rng.integers(0, 255, (7,) + tuple(color.shape),
+                                         dtype=np.uint8)).to(dev)
+    imgs = torch.cat([color[None], imgs])
+    spread = {}
+    for k, v in sd.items():
+        if k.endswith(("running_var", "bn.weight")):
+            spread[k] = torch.from_numpy(rng.uniform(0.5, 1.5, v.shape).astype(np.float32))
+        elif k.endswith(("running_mean", "bias")):
+            spread[k] = torch.from_numpy((rng.normal(size=v.shape) * 0.1).astype(np.float32))
+        else:
+            spread[k] = v.cpu()
+    out = {dt: Detector(spread, nc=5, imgsz=640, dtype=dt, device=dev).predict_batch(
+        imgs, conf=0.0) for dt in dets}
+    (d32, _), (d16, _) = out["float32"], out["bfloat16"]
+    gaps = [float((torch.sort(d16.scores[i][d16.valid[i]]).values
+                   - torch.sort(d32.scores[i][d32.valid[i]]).values).abs().max())
+            for i in range(len(imgs))]
+    per = per_anchor_gaps(torch, spread, imgs)
+    b2 = {"part": "b2 bfloat16 vs float32 detections, 8 images at 640, conf 0", "card": card,
+          "max_score_gap": max(gaps), "score_gap_per_image": gaps, "gate": 0.03,
+          "valid_equal": bool(torch.equal(d16.valid, d32.valid)),
+          "top_class_equal": int((d16.classes[:, 0] == d32.classes[:, 0]).sum()),
+          "scores_dtype": str(d16.scores.dtype).replace("torch.", ""),
+          "top_score_float32": float(d32.scores[:, 0].max()),
+          "top_box_max_px_diff": float((d16.boxes[:, 0] - d32.boxes[:, 0]).abs().max()),
+          "bfloat16_scores_tied_with_top": int((d16.scores == d16.scores[:, :1]).sum(1).min()),
+          **per, "anchor_box_gate_px": 1.0, "anchor_cls_gate": 0.03, "mask_pixel_gate": 0.01,
+          "mask_prob_gate": 0.01}
+    log(json.dumps({"bf16": b2}))
+    if not (d16.valid.sum(1) == d32.valid.sum(1)).all() or not max(gaps) <= 0.03 \
+            or d16.scores.dtype != torch.float32 or not per["anchor_box_max_px"] <= 1.0 \
+            or not per["anchor_cls_max"] <= 0.03 or not per["mask_pixel_disagreement"] <= 0.01 \
+            or not per["mask_prob_max"] <= 0.01:
+        fail(f"(b2): bfloat16 against float32 detections {b2}")
+    return {"b1": b1, "b2": b2}
+
+
+def per_anchor_gaps(torch, sd: dict, imgs) -> dict:
+    """bfloat16 against float32 before NMS, where no tie decides anything:
+    ``sd``'s network in each dtype on the letterboxed ``imgs`` (B, H, W, 3),
+    the largest gap of a decoded box (px) and of a class probability over
+    every anchor, and the share of pixels on which the masks of each image's
+    8 best float32 anchors disagree (each dtype's own coefficients, boxes
+    and prototypes), with the share of those pixels that are set."""
+    from poseestimator_tpu_torch.models.yolo.decode import decode_boxes
+    from poseestimator_tpu_torch.models.yolo.masks import assemble_masks
+    from poseestimator_tpu_torch.models.yolo.model import YOLO11Seg
+    from poseestimator_tpu_torch.models.yolo.preprocess import letterbox
+
+    dev = imgs.device
+    lbs, metas = zip(*(letterbox(im, 640) for im in imgs))
+    x = torch.stack(lbs).permute(0, 3, 1, 2)
+    out = {}
+    for dt in ("float32", "bfloat16"):
+        m = YOLO11Seg(nc=5, scale="n", dtype=dt)
+        m.load_state_dict(sd)
+        m = m.to(dev).eval()
+        with torch.no_grad():
+            raw = m(x)
+            out[dt] = (*decode_boxes(raw), raw["proto"])
+    (b32, c32, m32, p32), (b16, c16, m16, p16) = out["float32"], out["bfloat16"]
+    h, w = imgs.shape[1:3]
+    ones = torch.ones(8, dtype=torch.bool, device=dev)
+    dis = on = prob = 0.0
+    for i, meta in enumerate(metas):
+        top = torch.sort(-c32[i].max(-1).values, stable=True).indices[:8]
+        k32 = assemble_masks(p32[i], m32[i][top], b32[i][top], ones, meta, h, w)
+        k16 = assemble_masks(p16[i], m16[i][top], b16[i][top], ones, meta, h, w)
+        dis += float((k32 != k16).float().mean()) / len(metas)
+        on += float(k32.float().mean()) / len(metas)
+        # the probabilities before the threshold (random weights' masks may
+        # come out empty), at the prototypes' resolution
+        q32, q16 = (torch.sigmoid(torch.einsum("dn,hwn->dhw", m[i][top], p[i]).float())
+                    for m, p in ((m32, p32), (m16, p16)))
+        prob = max(prob, float((q16 - q32).abs().max()))
+    return {"anchor_box_max_px": float((b16 - b32).abs().max()),
+            "anchor_cls_max": float((c16.float() - c32).abs().max()),
+            "mask_pixel_disagreement": dis, "mask_pixels_set": on, "mask_prob_max": prob}
+
+
+def search_b_independence(torch, dev) -> dict:
+    """The template search's batched registration at its shapes, on the
+    card, in ``check_b_independence``'s style: the 16-template synthetic
+    search (the parallel phase's fixture) is run once recording its four
+    batched ICPs (the coarse stage's 80 chains x 128 points, the polish
+    stages' 16 x 768, 768 and 2048); each is run again on its first half of
+    chains and on chains 0, 3 and B - 1 alone, and ``kabsch_batched`` on
+    its chains at their final poses likewise: every chain's pose, fitness,
+    rmse and iterations (R and t) must be the batch's bit for bit."""
+    from poseestimator_tpu_torch.parallel import make_synthetic_search_inputs
+    from poseestimator_tpu_torch.pipeline import pose_estimator as pe
+    from poseestimator_tpu_torch.registration.kabsch import kabsch_batched
+
+    fx = make_synthetic_search_inputs(n_tpl=PAR_SYNTH_TEMPLATES, C=128, n_cad=1200, device=dev)
+    calls, icp = [], pe.icp_point_to_point_batched
+
+    def recorded(*a, **k):
+        r = icp(*a, **k)
+        calls.append((a, k, r))
+        return r
+
+    pe.icp_point_to_point_batched = recorded
+    try:
+        pe.search_templates(fx["dst_points"], fx["dst_valid"], fx["tpl_points"],
+                            fx["tpl_valid"], fx["tpl_fpfh"], fx["cad_points"], fx["cad_valid"],
+                            fx["intr"], fx["mask_sil"], True, 0.05,
+                            torch.Generator(device=dev).manual_seed(0), n_final=None,
+                            render_kind="points")
+    finally:
+        pe.icp_point_to_point_batched = icp
+    out = []
+    for stage, (a, k, r) in enumerate(calls):
+        src, valid, dst = a[0], a[1], a[2]
+        B, N = src.shape[:2]
+        init = a[4] if len(a) > 4 else torch.eye(4, device=dev).expand(B, 4, 4)
+        moved = src @ r.T[:, :3, :3].transpose(-1, -2) + r.T[:, None, :3, 3]
+        R, t = kabsch_batched(src, moved, valid.float())
+        for sel in (slice(0, B // 2), slice(0, 1), slice(3, 4), slice(B - 1, B)):
+            part = icp(src[sel], valid[sel], dst, a[3], init[sel], **k)
+            Rs, ts = kabsch_batched(src[sel], moved[sel], valid[sel].float())
+            same = (torch.equal(part.T, r.T[sel]) and torch.equal(part.fitness, r.fitness[sel])
+                    and torch.equal(part.inlier_rmse, r.inlier_rmse[sel])
+                    and torch.equal(part.n_iters, r.n_iters[sel])
+                    and torch.equal(Rs, R[sel]) and torch.equal(ts, t[sel]))
+            if not same:
+                fail(f"search ICP {stage} ({B} chains x {N} points): chains {sel.start}:"
+                     f"{sel.stop} differ from themselves in the whole batch")
+        out.append({"stage": stage, "chains": B, "points": N,
+                    "n_iters": [int(x) for x in r.n_iters],
+                    "bit_equal": ["first half", "chain 0", "chain 3", f"chain {B - 1}"]})
+    if [(o["chains"], o["points"]) for o in out] != [(80, 128), (16, 768), (16, 768),
+                                                     (16, 2048)]:
+        fail(f"search B-independence: unexpected batched ICP shapes {out}")
+    log(json.dumps({"search_b_independence": out}))
+    return {"icps": out}
+
+
+def bf16_train_part(torch, dev, yml: str, tmp: str, card: str, imgsz: int = 640,
+                    batch: int = 16) -> dict:
+    """(b3) Two train steps at the training point (``imgsz`` 640, ``batch``
+    16, Adam 1e-3, EMA; augmentation off) on (t1)'s data from one seeded
+    init, in float32 and in bfloat16 (``TrainConfig(dtype=)``): the loss
+    parts of each step (finite in bfloat16), step ms between CUDA events and
+    the peak allocated memory of each."""
+    from poseestimator_tpu_torch.training import trainer as trainer_mod
+    from poseestimator_tpu_torch.training.data import DataLoader
+
+    kw = dict(data=yml, imgsz=imgsz, batch=batch, augment=False, warmup_epochs=0.0,
+              project=os.path.join(tmp, "b3"), device=str(dev))
+    rec = {"part": f"b3 bfloat16 train steps, {batch} at {imgsz}", "card": card}
+    sd = images = None
+    for dt in ("float32", "bfloat16"):
+        tr = trainer_mod.Trainer(trainer_mod.TrainConfig(**kw, dtype=dt, name=dt))
+        if sd is None:
+            st = tr.init_state()
+            sd = {k: v.detach().clone() for k, v in tr.model.state_dict().items()}
+            images = next(iter(DataLoader(tr.train_samples, batch, imgsz, 32, shuffle=False)))
+        else:
+            st = tr.init_state(sd)
+        tensors = tr._tensors(images)
+        parts, ms = [], []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(2):
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s.record()
+            st, p = tr._train_step(st, *tensors)
+            e.record()
+            e.synchronize()
+            ms.append(s.elapsed_time(e))
+            parts.append({k: float(v) for k, v in p.items()})
+        rec[dt] = {"parts": parts, "step_ms": ms,
+                   "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                   "params_float32": all(v.dtype == torch.float32 for v in st.params.values())}
+        del tr, st, tensors
+    log(json.dumps({"bf16": rec}))
+    b = rec["bfloat16"]
+    if not all(np.isfinite(v) for p in b["parts"] for v in p.values()) or not b["params_float32"]:
+        fail(f"(b3): bfloat16 train steps {rec}")
+    return rec
 
 
 def tracker_scene(look_at, gl_to_cv, diag: float) -> list:
@@ -1502,6 +1786,34 @@ def apps_phase(torch, dev, kc, fnn, rs, off_dir: str, visib: dict, card: str) ->
                 or red == 0 or launches["k1"] == 0:
             fail(f"apps a1: overlay {ov.shape} with {red} red pixels, K1 {launches['k1']}")
         parts["a1"] = a1
+
+        # (b4) the same run through the compat namespace's module path: the
+        # same registration, metrics and overlay
+        from poseestimator_tpu_torch.compat import main_image as compat_image
+
+        first = dict(rec)
+        rec.clear()
+        overlay_c = os.path.join(off_dir, "b4_overlay.png")
+        t = time.perf_counter()
+        rc_c = compat_image.main([
+            "--weights", weights, "--rgb", os.path.join(scene, "rgb", "000000.png"),
+            "--depth", os.path.join(scene, "depth", "000000.png"),
+            "--scene-camera", os.path.join(scene, "scene_camera.json"),
+            "--scene-gt", os.path.join(scene, "scene_gt.json"), "--templates", views,
+            "--ply", cad, "--models-info", os.path.join(scene, "models_info.json"),
+            "--headless", "--save-overlay", overlay_c, "--device", dev_s])
+        torch.cuda.synchronize()
+        same = (rc_c == rc and np.array_equal(rec["H"], first["H"])
+                and rec["chamfers"] == first["chamfers"]
+                and all(np.array_equal(np.asarray(rec["fm"][k]), np.asarray(first["fm"][k]))
+                        for k in first["fm"]) and rec["ar"] == first["ar"]
+                and np.array_equal(read_png(overlay_c), ov))
+        b4 = emit("b4 compat.main_image", {
+            "rc": rc_c, "equal_to_a1": same, "main_ms": (time.perf_counter() - t) * 1e3,
+            "add_mm": rec["fm"]["add_mm"], "bop_ar": rec["ar"]["bop_ar"]})
+        if not same:
+            fail(f"apps b4: compat.main_image differs from apps/main_image: {b4}")
+        parts["b4"] = b4
 
         # (a2) main_realsense, the synthetic source at the app's defaults
         cams, steps, builds = [], [], []
@@ -2603,12 +2915,9 @@ def parallel_phase(torch, dev, kc, off_dir: str, dataset_yaml: str, tmp: str, ca
             fail(f"parallel p2 world {world}: winner ADD-S {adds:.4f} cm >= {ADDS_BUDGET_CM}")
         if any(x["k1"] == 0 or x["k2"] == 0 for x in e):
             fail(f"parallel p2 world {world}: K1/K2 launches {rec['launches_per_rank']}")
-    # (p2) the synthetic fixture, gated as the dry run gates it (finite
-    # scores, the winner's ADD) and by world 1 equal to the single device.
-    # At world 2 a decoy chain can exit its strict-tolerance ICP an
-    # iteration apart: the batched ICP's CUDA reductions over (B, N) round
-    # by B, and 8 chains a rank are not 16 (the port's CPU ranks agree bit
-    # for bit); the differences are printed
+    # (p2) the synthetic fixture: both worlds bit-equal to the single
+    # device (the batched registration's sums over points run in an order
+    # fixed by the point count, so 8 chains a rank give the bits of 16)
     ss = one["p2 synthetic"]["single"]
     for world, rs_ in ((1, [one]), (2, two)):
         e = [r["p2 synthetic"] for r in rs_]
@@ -2621,11 +2930,8 @@ def parallel_phase(torch, dev, kc, off_dir: str, dataset_yaml: str, tmp: str, ca
                            "templates_differing": [int(i) for i in torch.nonzero(d > 0)],
                            "winner_score_diff": float(d[w]),
                            "ms": [x["ms"] for x in e], "launches_per_rank": [counts(x) for x in e]})
-        if (world == 1 and not bit) or w != int(torch.argmin(ss["scores"])) \
-                or not torch.isfinite(e[0]["scores"]).all():
+        if not bit or not torch.isfinite(e[0]["scores"]).all():
             fail(f"parallel p2 synthetic world {world}: {rec}")
-        if not e[0]["add"] < 0.15:  # the dry run's gate
-            fail(f"parallel p2 synthetic world {world}: winner ADD {e[0]['add']:.4f} >= 0.15")
         if any(not torch.equal(x["scores"], e[0]["scores"]) for x in e):
             fail(f"parallel p2 synthetic world {world}: the ranks' results differ")
 
@@ -2727,6 +3033,7 @@ def main(argv=None) -> int:
                    help="write the offline phase's CAD, template database and BOP scene "
                    "here and keep them (default: a temporary directory)")
     args = p.parse_args(argv)
+    wall0 = time.perf_counter()
 
     try:
         import torch
@@ -2848,6 +3155,14 @@ def main(argv=None) -> int:
     if not adds_mean <= ADDS_BUDGET_CM:
         fail(f"mean ADD-S {adds_mean:.4f} cm > {ADDS_BUDGET_CM} cm")
 
+    # 5b. the main path over the bfloat16 detector (b1), and its detections
+    # against the float32 detector's (b2)
+    bf16 = bf16_phase(torch, dev, fnn, rs, model, verts, pad_faces(kc.BOX_FACES, 256), intr,
+                      win, color, depths, T0, T_true, pts, {
+                          "frame_ms_median": float(np.median(frame_ms)),
+                          "frame_ms_min": float(min(frame_ms)), "adds_mean_cm": adds_mean,
+                          "k1_launches": k1_launches, "k2_launches": k2_launches}, card)
+
     # where the frame goes: the track step alone on the same inputs, and
     # the cost of one host read (the ICP loop makes one per iteration)
     track_ms = call_ms(torch, lambda: track_step(mesh_v, mesh_f, depths[0] > 0, depths[0], T0,
@@ -2860,6 +3175,7 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         search = search_phase(torch, dev, kc, fnn, rs, intr, tmp, profile_path=(
             "{0}_search{1}".format(*os.path.splitext(args.profile)) if args.profile else None))
+        search_bi = search_b_independence(torch, dev)
         # 7. the tracker, then the kernels at its new shapes
         tracker = tracker_phase(torch, dev, kc, fnn, rs, tmp)
         icp_options = icp_options_phase(torch, dev, kc, fnn, rs, track_step)
@@ -2874,6 +3190,7 @@ def main(argv=None) -> int:
         apps = apps_phase(torch, dev, kc, fnn, rs, off_dir, offline["offline"]["summary"], card)
         # 11. detector training and synthetic data
         train = train_phase(torch, dev, rs, tmp, card)
+        bf16["b3"] = bf16_train_part(torch, dev, train["dataset_yaml"], tmp, card)
         # 12. the multi-device paths at world 1 (NCCL) and 2 (gloo, one card)
         par = parallel_phase(torch, dev, kc, off_dir, train.pop("dataset_yaml"), tmp, card)
     # the apps' kernel shapes that no earlier phase gave (checked below)
@@ -2931,6 +3248,7 @@ def main(argv=None) -> int:
         "search": search, "tracker": tracker["parts"], "icp_options": icp_options,
         "multi": multi["parts"], "offline": offline, "apps": apps["parts"],
         "train": train["parts"], "parallel": par["parts"], "parallel_wall_s": par["wall_s"],
+        "bf16": bf16, "search_b_independence": search_bi, "wall_s": time.perf_counter() - wall0,
     }
     log(f"track step alone: {track_ms:.3f} ms; one host read: {read_us:.1f} us")
     k2_main = k2["shapes"][k2["main"]]
@@ -3023,7 +3341,7 @@ def main(argv=None) -> int:
     log(f"card: {card}")
     log(json.dumps({k: v for k, v in summary.items() if k not in (
         "frame_ms", "icp_n_iters", "kernels", "search", "tracker", "multi", "icp_options",
-        "offline", "apps", "train", "parallel")}))
+        "offline", "apps", "train", "parallel", "bf16", "search_b_independence")}))
     log(json.dumps({"search": search}))
     log(json.dumps(kernels_line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -16,8 +16,9 @@ JAX app runs them again), and a replay of a recorded session gives its
 poses bit for bit.
 
 The port opens no windows: run it with ``--headless``; without it the app
-exits at once saying so. ``--detector-dtype bfloat16`` is not ported (the
-port's detector runs float32) and raises.
+exits at once saying so. ``--detector-dtype bfloat16`` runs the detector's
+network in bfloat16 inside the fused frame (its parameters, and all the
+geometry, stay float32).
 
 Run:
     python -m poseestimator_tpu_torch.apps.main_realsense --headless \\
@@ -59,7 +60,9 @@ def build_parser():
                    help="realsense | replay:<dir with color_*.png/depth_*.npy> | synthetic")
     p.add_argument("--nc", type=int, default=5)
     p.add_argument("--detector-dtype", default="float32", choices=["float32", "bfloat16"],
-                   help="the detector's forward dtype; the port runs float32 only")
+                   help="the detector network's compute dtype inside the fused frame; "
+                        "bfloat16 runs its convs on the tensor cores' format (geometry "
+                        "stays float32: only the detection mask is affected)")
     p.add_argument("--conf", type=float, default=0.7)
     p.add_argument("--max-frames", type=int, default=0, help="0 = unlimited")
     p.add_argument("--headless", action="store_true", help="required: the port opens no windows")
@@ -145,15 +148,13 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     if not args.headless:
         raise SystemExit(NO_WINDOWS)
-    if args.detector_dtype != "float32":
-        raise NotImplementedError("--detector-dtype bfloat16: the port's detector runs float32")
     dev = resolve_device(args.device)
     cam = make_camera(args, Intrinsics.from_fov(60.0, 640, 480))
     intr, K = cam.rs_get_intrinsics()
 
     estimator = PoseEstimator(args.cad_path, args.pcd_path, intr, K, args.target_pts or 200,
                               view_set=args.view_set, device=dev)
-    detector = Detector(args.weights, nc=args.nc, device=dev)
+    detector = Detector(args.weights, nc=args.nc, dtype=args.detector_dtype, device=dev)
     cad_points, _ = estimator.mesh.sample_points_uniformly(args.cad_overlay_points)
     cad_points_by_cls = {0: cad_points}  # per-class overlay clouds (--multi-cad)
 

@@ -99,6 +99,18 @@ def from_points(points, capacity: Optional[int] = None, colors=None, normals=Non
     return PointCloud(points=pad(pts), valid=valid, normals=pad(normals), colors=pad(colors))
 
 
+def bounding_box(cloud: PointCloud):
+    """``(min_bound, max_bound)`` (3,) over the valid points; zeros when
+    there is none."""
+    v = cloud.valid[:, None]
+    big = torch.full_like(cloud.points, 1e30)
+    lo = torch.where(v, cloud.points, big).amin(0)
+    hi = torch.where(v, cloud.points, -big).amax(0)
+    zero = torch.zeros_like(lo)
+    any_valid = cloud.valid.any()
+    return torch.where(any_valid, lo, zero), torch.where(any_valid, hi, zero)
+
+
 def to_numpy(cloud: PointCloud) -> np.ndarray:
     """The valid points as a dense (n_valid, 3) numpy array."""
     return cloud.points[cloud.valid].cpu().numpy()

@@ -14,6 +14,11 @@ def masked_mean(x: torch.Tensor, mask: torch.Tensor, dim=None) -> torch.Tensor:
     return (x * w).sum(dim) / torch.clamp(w.sum(dim), min=1.0)
 
 
+def masked_min(x: torch.Tensor, mask: torch.Tensor, dim=None, fill: float = BIG) -> torch.Tensor:
+    y = torch.where(mask, x, torch.full_like(x, fill))
+    return y.amin() if dim is None else y.amin(dim)
+
+
 def masked_max(x: torch.Tensor, mask: torch.Tensor, dim=None) -> torch.Tensor:
     y = torch.where(mask, x, torch.full_like(x, -BIG))
     return y.amax() if dim is None else y.amax(dim)

@@ -83,6 +83,18 @@ def quat_to_R(q: torch.Tensor) -> torch.Tensor:
     ], -2)
 
 
+def random_rotation(generator: torch.Generator | None = None,
+                    draw: torch.Tensor | None = None) -> torch.Tensor:
+    """A uniform random rotation: a standard normal quaternion, normalised.
+    ``draw`` is that (4,) normal sample given instead of drawn from
+    ``generator`` (whose device the rotation takes)."""
+    if draw is None:
+        dev = generator.device if generator is not None else None
+        draw = torch.randn(4, generator=generator, device=dev)
+    q = draw.to(torch.float32)
+    return quat_to_R(q / torch.linalg.vector_norm(q))
+
+
 def pca_axes(points: torch.Tensor, valid: torch.Tensor):
     """Principal axes of the valid rows of (..., N, 3) points: ``(R (..., 3,
     3), s (..., 3))``, R's columns sorted by decreasing variance with
@@ -148,3 +160,15 @@ def look_at(eye, target, up) -> torch.Tensor:
     y = torch.linalg.cross(z, x)
     R = torch.stack([x, y, z])
     return make_T(R, -(R @ eye))
+
+
+def camera_eye_lookat_up_from_H(H: torch.Tensor):
+    """Model->camera ``H`` -> ``(eye, target, up)`` in model coordinates:
+    the camera centre, one unit along its viewing axis, and its up (-y)
+    axis, unit length."""
+    R, t = H[:3, :3], H[:3, 3]
+    eye = -(R.T @ t)
+    forward = R.T @ torch.tensor([0.0, 0.0, 1.0], dtype=R.dtype, device=R.device)
+    up = R.T @ torch.tensor([0.0, -1.0, 0.0], dtype=R.dtype, device=R.device)
+    up = up / (torch.linalg.vector_norm(up) + 1e-12)
+    return eye, eye + forward, up

@@ -22,8 +22,10 @@ def make_anchors(shapes, strides, device, offset: float = 0.5):
 
 
 def dfl_expectation(box_raw: torch.Tensor, reg_max: int = 16) -> torch.Tensor:
-    """(..., 4 reg_max) logits -> (..., 4) expected distances: the softmax
-    expectation over each side's bins."""
+    """(..., 4 reg_max) logits -> (..., 4) float32 expected distances: the
+    softmax expectation over each side's bins (the softmax in the logits'
+    dtype, the expectation in float32, as JAX promotes a bfloat16 head's
+    probabilities against its float32 bins)."""
     p = box_raw.reshape(*box_raw.shape[:-1], 4, reg_max).softmax(-1)
     bins = torch.arange(reg_max, dtype=torch.float32, device=p.device)
     return (p * bins).sum(-1)
@@ -48,7 +50,8 @@ def flatten_levels(per_level) -> torch.Tensor:
 
 def decode_boxes(raw: dict, strides=STRIDES, reg_max: int = 16):
     """Raw head outputs -> ``(boxes_xyxy_px (B, A, 4), cls_prob (B, A, nc),
-    mask_coeffs (B, A, nm))``."""
+    mask_coeffs (B, A, nm))``: the boxes float32, the probabilities and
+    coefficients in the head's dtype."""
     shapes = [x.shape[1:3] for x in raw["box"]]
     anchors, stride_pa = make_anchors(shapes, strides, raw["box"][0].device)
     dist = dfl_expectation(flatten_levels(raw["box"]), reg_max)

@@ -20,10 +20,12 @@ def assemble_masks(proto: torch.Tensor, coeffs: torch.Tensor,
     """proto (Hp, Wp, nm), coeffs (D, nm), boxes (D, 4) in letterbox pixels
     -> (D, out_h, out_w) bool masks in the original image frame:
     sigmoid(coef . proto), bilinear resample at original pixel centres (as
-    two full-float32 matmuls), crop to the box, threshold."""
+    two full-float32 matmuls), crop to the box, threshold. A bfloat16 head's
+    logits and sigmoid stay bfloat16 and meet the float32 resampling
+    weights in float32, as JAX promotes them."""
     Hp, Wp, _ = proto.shape
     dev = proto.device
-    m = torch.sigmoid(torch.einsum("dn,hwn->dhw", coeffs, proto))
+    m = torch.sigmoid(torch.einsum("dn,hwn->dhw", coeffs, proto)).float()
     ys = (torch.arange(out_h, dtype=torch.float32, device=dev) + 0.5) * meta.scale + meta.pad_y
     xs = (torch.arange(out_w, dtype=torch.float32, device=dev) + 0.5) * meta.scale + meta.pad_x
     py, px = ys / 4.0, xs / 4.0
@@ -34,8 +36,8 @@ def assemble_masks(proto: torch.Tensor, coeffs: torch.Tensor,
     wy = torch.clamp(py - 0.5 - y0, 0.0, 1.0)
     wx = torch.clamp(px - 0.5 - x0, 0.0, 1.0)
     oh = torch.nn.functional.one_hot
-    Wy = (1.0 - wy)[:, None] * oh(y0, Hp).to(m.dtype) + wy[:, None] * oh(y1, Hp).to(m.dtype)
-    Wx = (1.0 - wx)[:, None] * oh(x0, Wp).to(m.dtype) + wx[:, None] * oh(x1, Wp).to(m.dtype)
+    Wy = (1.0 - wy)[:, None] * oh(y0, Hp).float() + wy[:, None] * oh(y1, Hp).float()
+    Wx = (1.0 - wx)[:, None] * oh(x0, Wp).float() + wx[:, None] * oh(x1, Wp).float()
     up = torch.einsum("dhw,Hh->dHw", m, Wy)
     up = torch.einsum("dHw,Ww->dHW", up, Wx)
 

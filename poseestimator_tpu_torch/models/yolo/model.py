@@ -11,6 +11,16 @@ holds no DFL conv.
 ``forward`` takes a letterboxed NCHW batch and returns the raw head outputs
 in the JAX package's layout: ``{"box", "cls", "mc"}`` per-level (B, H, W, C)
 views and ``"proto"`` (B, Hp, Wp, nm).
+
+``YOLO11Seg(dtype=torch.bfloat16)`` computes in bfloat16 as the JAX
+package's ``YOLO11Seg(dtype=jnp.bfloat16)`` does, its parameters staying
+float32: every conv casts its input, kernel and bias to bfloat16 and
+returns bfloat16, and BatchNorm computes in float32 from the bfloat16
+input (its batch statistics too, in training) and rounds once. SiLU,
+sigmoid and softmax are torch's fused ops, which round once where XLA's
+expansions of them round at every step (within two bfloat16 ulps of
+them). The head's outputs are bfloat16. In float32 every module computes
+exactly as before.
 """
 from __future__ import annotations
 
@@ -18,6 +28,7 @@ import math
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 SCALES = {
     # depth, width, max_channels
@@ -32,6 +43,35 @@ STRIDES = (8, 16, 32)
 
 def make_divisible(x: float, divisor: int = 8) -> int:
     return max(divisor, int(x + divisor / 2) // divisor * divisor)
+
+
+class _Dtyped:
+    """A module whose compute dtype follows its block's (``YOLO11Seg``
+    sets it; None: its parameters' dtype, float32 or a float64 copy's); its
+    parameters keep theirs."""
+
+    compute_dtype = None
+
+
+class Conv2d(nn.Conv2d, _Dtyped):
+    """``nn.Conv2d`` under flax's ``nn.Conv(dtype=)``: the input, kernel and
+    bias cast to the compute dtype, the output in it."""
+
+    def forward(self, x):
+        dt = self.compute_dtype or self.weight.dtype
+        return self._conv_forward(x.to(dt), self.weight.to(dt),
+                                  None if self.bias is None else self.bias.to(dt))
+
+
+class ConvTranspose2d(nn.ConvTranspose2d, _Dtyped):
+    """``nn.ConvTranspose2d`` under flax's ``nn.ConvTranspose(dtype=)``, as
+    ``Conv2d``."""
+
+    def forward(self, x):
+        dt = self.compute_dtype or self.weight.dtype
+        return F.conv_transpose2d(x.to(dt), self.weight.to(dt),
+                                  None if self.bias is None else self.bias.to(dt), self.stride,
+                                  self.padding, self.output_padding, self.groups, self.dilation)
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -49,24 +89,32 @@ class BatchNorm2d(nn.BatchNorm2d):
     global mean, are all-reduced through a differentiable all-reduce (so
     the backward carries the cross-rank terms of the mean and variance),
     and the running statistics move by the global mean and biased
-    variance."""
+    variance.
+
+    A bfloat16 input (a bfloat16 block's) is normalised in float32 and the
+    result rounded to bfloat16 once, as flax's ``BatchNorm(dtype=)`` does;
+    in training the batch statistics are reduced in float32 from it
+    (flax's ``force_float32_reductions``)."""
 
     mesh = None
 
     def forward(self, x):
+        # flax computes a bfloat16 block's BatchNorm in float32
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
         if not self.training:
-            return super().forward(x)
-        if self.mesh is not None and self.mesh.size > 1:
-            return self._global_batch(x)
-        prior = self.running_var.clone()
-        y = super().forward(x)
-        n = x.numel() // x.shape[1]
-        # running = (1 - m) prior + m s2 n / (n - 1); flax keeps (1 - m) prior
-        # + m s2. Through .data: autograd saved the buffer with the call (its
-        # train-mode backward does not read it) and would refuse a new version
-        rv = self.running_var.data
-        rv.sub_((rv - (1.0 - self.momentum) * prior) / n)
-        return y
+            y = super().forward(xf)
+        elif self.mesh is not None and self.mesh.size > 1:
+            y = self._global_batch(xf)
+        else:
+            prior = self.running_var.clone()
+            y = super().forward(xf)
+            n = x.numel() // x.shape[1]
+            # running = (1 - m) prior + m s2 n / (n - 1); flax keeps (1 - m) prior
+            # + m s2. Through .data: autograd saved the buffer with the call (its
+            # train-mode backward does not read it) and would refuse a new version
+            rv = self.running_var.data
+            rv.sub_((rv - (1.0 - self.momentum) * prior) / n)
+        return y.to(x.dtype)
 
     def _global_batch(self, x):
         mesh = self.mesh
@@ -89,7 +137,7 @@ class Conv(nn.Module):
 
     def __init__(self, c1, c2, k=1, s=1, g=1, act=True):
         super().__init__()
-        self.conv = nn.Conv2d(c1, c2, k, s, k // 2, groups=g, bias=False)
+        self.conv = Conv2d(c1, c2, k, s, k // 2, groups=g, bias=False)
         self.bn = BatchNorm2d(c2, eps=1e-3, momentum=0.03)
         self.act = nn.SiLU() if act else nn.Identity()
 
@@ -175,7 +223,11 @@ class Attention(nn.Module):
         q, k, v = self.qkv(x).view(
             B, self.num_heads, self.key_dim * 2 + self.head_dim, N
         ).split([self.key_dim, self.key_dim, self.head_dim], dim=2)
-        attn = ((q.transpose(-2, -1) @ k) * self.scale).softmax(dim=-1)
+        # a weak Python scalar takes the array's dtype in JAX: the scale
+        # rounded to it (in bfloat16 the product of two bfloat16 values is
+        # exact in float32, so torch's one rounding of it is XLA's)
+        scale = float(torch.tensor(self.scale, dtype=q.dtype))
+        attn = ((q.transpose(-2, -1) @ k) * scale).softmax(dim=-1)
         out = (v @ attn.transpose(-2, -1)).view(B, C, H, W)
         out = out + self.pe(v.reshape(B, C, H, W))
         return self.proj(out)
@@ -209,7 +261,7 @@ class Proto(nn.Module):
     def __init__(self, c1, c_, c2):
         super().__init__()
         self.cv1 = Conv(c1, c_, 3)
-        self.upsample = nn.ConvTranspose2d(c_, c_, 2, 2, 0, bias=True)
+        self.upsample = ConvTranspose2d(c_, c_, 2, 2, 0, bias=True)
         self.cv2 = Conv(c_, c_, 3)
         self.cv3 = Conv(c_, c2, 1)
 
@@ -228,17 +280,17 @@ class Segment(nn.Module):
         c3 = max(ch[0], min(nc, 100))
         c4 = max(ch[0] // 4, nm)
         self.cv2 = nn.ModuleList(
-            nn.Sequential(Conv(x, c2, 3), Conv(c2, c2, 3), nn.Conv2d(c2, 4 * reg_max, 1))
+            nn.Sequential(Conv(x, c2, 3), Conv(c2, c2, 3), Conv2d(c2, 4 * reg_max, 1))
             for x in ch)
         self.cv3 = nn.ModuleList(
             nn.Sequential(
                 nn.Sequential(Conv(x, x, 3, g=x), Conv(x, c3, 1)),
                 nn.Sequential(Conv(c3, c3, 3, g=c3), Conv(c3, c3, 1)),
-                nn.Conv2d(c3, nc, 1),
+                Conv2d(c3, nc, 1),
             )
             for x in ch)
         self.cv4 = nn.ModuleList(
-            nn.Sequential(Conv(x, c4, 3), Conv(c4, c4, 3), nn.Conv2d(c4, nm, 1))
+            nn.Sequential(Conv(x, c4, 3), Conv(c4, c4, 3), Conv2d(c4, nm, 1))
             for x in ch)
         self.proto = Proto(ch[0], npr, nm)
 
@@ -253,9 +305,11 @@ class Segment(nn.Module):
 
 
 class YOLO11Seg(nn.Module):
-    """Full YOLO11-seg graph (backbone, PAN-FPN neck, segment head)."""
+    """Full YOLO11-seg graph (backbone, PAN-FPN neck, segment head).
+    ``dtype``: the compute dtype, ``torch.float32`` or ``torch.bfloat16``
+    (the parameters are float32 either way)."""
 
-    def __init__(self, nc=80, scale="n", reg_max=16, nm=32, npr=256):
+    def __init__(self, nc=80, scale="n", reg_max=16, nm=32, npr=256, dtype=torch.float32):
         super().__init__()
         depth, width, max_ch = SCALES[scale]
 
@@ -293,6 +347,19 @@ class YOLO11Seg(nn.Module):
             C3k2(c(512) + c(1024), c(1024), n(2), True, 0.5),  # 22 P5
             Segment(nc, nm, c(npr), (c(256), c(512), c(1024)), reg_max),  # 23
         ])
+        self.set_dtype(dtype)
+
+    def set_dtype(self, dtype) -> "YOLO11Seg":
+        """Set the compute dtype of every block (``dtype`` a torch dtype or
+        its name, ``"float32"`` or ``"bfloat16"``)."""
+        dtype = getattr(torch, dtype) if isinstance(dtype, str) else dtype
+        if dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"unsupported detector dtype {dtype}; float32 or bfloat16")
+        self.dtype = dtype
+        for m in self.modules():
+            if isinstance(m, _Dtyped):
+                m.compute_dtype = None if dtype == torch.float32 else dtype
+        return self
 
     def forward(self, x):
         m = self.model

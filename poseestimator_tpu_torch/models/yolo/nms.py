@@ -51,10 +51,14 @@ def _top(x: torch.Tensor, k: int):
 def nms(boxes, cls_prob, coeffs, conf_thres: float = 0.25, iou_thres: float = 0.7,
         pre_nms: int = 1024, max_det: int = 300) -> Detections:
     """Single-image NMS: boxes (A, 4), cls_prob (A, nc), coeffs (A, nm);
-    per-anchor class = argmax."""
+    per-anchor class = argmax. Scores in a half dtype (a bfloat16 head's)
+    are widened to float32 first: exact, so the ranking and its ties are the
+    half dtype's, and the threshold compares in float32 as the JAX
+    package's float32 ``conf`` makes it; the scores leave as float32."""
     pre_nms = min(pre_nms, boxes.shape[0])
     max_det = min(max_det, pre_nms)
     scores_all, classes_all = cls_prob.max(dim=-1)
+    scores_all = scores_all.float()
     gate = scores_all >= conf_thres
     cand_scores, order = _top(torch.where(gate, scores_all,
                                           torch.full_like(scores_all, -1.0)), pre_nms)

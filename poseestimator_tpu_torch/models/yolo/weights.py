@@ -10,10 +10,13 @@ zero ``num_batches_tracked``); flax module names ``m{i}``, ``m_{k}``,
 ``ffn_{k}`` and the head's ``m23_cv{2,3,4}_{level}`` map back to the
 Ultralytics ``model.{i}.{...}`` keys. ``state_dict_to_variables`` is the
 inverse: a port state dict (a trained checkpoint's) as flax variables with
-numpy leaves.
+numpy leaves. ``translate_key`` names the flax leaf an Ultralytics key
+carries, and ``load_checkpoint`` reads any weights source the detector
+accepts into the port's state dict.
 """
 from __future__ import annotations
 
+import os
 import re
 from typing import Any, Mapping
 
@@ -164,3 +167,93 @@ def load_variables(model: torch.nn.Module, variables: Mapping[str, Any]) -> torc
     """Load flax variables into the port model with ``strict=True``."""
     model.load_state_dict(variables_to_state_dict(variables), strict=True)
     return model
+
+
+def translate_key(torch_key: str):
+    """An Ultralytics ``state_dict`` key -> ``(flax module path, leaf kind)``,
+    or None for a key with no flax leaf (``num_batches_tracked``, the fixed
+    DFL projection, anything outside ``model.``). Leaf kinds: ``conv.weight``,
+    ``bn.{weight,bias,running_mean,running_var}``, ``plain.{weight,bias}``
+    (the head's biased output convs), ``deconv.{weight,bias}`` (the proto
+    upsample)."""
+    key = torch_key
+    if key.startswith("model.model."):
+        key = key[len("model."):]
+    if not key.startswith("model.") or key.endswith("num_batches_tracked") or ".dfl." in key:
+        return None
+    module, leaf = key.rsplit(".", 1)
+    try:
+        path = _flax_path(module)
+    except KeyError:
+        return None
+    if path[-1] == "conv":
+        return path, "conv.weight"
+    if path[-1] == "bn":
+        return path, f"bn.{leaf}"
+    if path == ("m23_proto", "upsample"):
+        return path, f"deconv.{leaf}"
+    return path, f"plain.{leaf}"
+
+
+def _is_tensor_map(d) -> bool:
+    return all(hasattr(v, "shape") for v in d.values())
+
+
+def _torch_load(path):
+    """``torch.load`` of a full Ultralytics checkpoint without Ultralytics:
+    classes that do not import unpickle as empty ``nn.Module``s, enough to
+    walk to ``state_dict()``."""
+    import pickle
+
+    class StubUnpickler(pickle.Unpickler):
+        def find_class(self, module, name):
+            try:
+                return super().find_class(module, name)
+            except (ImportError, AttributeError):
+                return type(name, (torch.nn.Module,), {})
+
+    class StubPickleModule:
+        Unpickler = StubUnpickler
+
+        @staticmethod
+        def load(f, **kw):
+            return StubUnpickler(f).load()
+
+    return torch.load(path, map_location="cpu", weights_only=False,
+                      pickle_module=StubPickleModule)
+
+
+def load_checkpoint(source) -> dict[str, torch.Tensor]:
+    """A weights source -> the port model's float32 state dict (the port's
+    ``variables``): a port checkpoint ``.pt`` or state dict, flax variables
+    (or a ``.npz`` holding them under ``"variables"``), an Ultralytics
+    checkpoint, state dict or ``nn.Module``. The JAX trainer's orbax
+    checkpoint directories are not read."""
+    if isinstance(source, (str, os.PathLike)):
+        path = str(source)
+        if os.path.isdir(path):
+            raise NotImplementedError(
+                "orbax checkpoint directories are not supported; export the variables "
+                "to .npz or an Ultralytics-style state dict")
+        if path.endswith(".npz"):
+            return variables_to_state_dict(np.load(path, allow_pickle=True)["variables"].item())
+        source = _torch_load(path)
+    if isinstance(source, Mapping) and "params" in source:
+        if not _is_tensor_map(source["params"]):
+            return variables_to_state_dict(source)  # flax variables
+        source = source["params"]  # a port checkpoint
+    if isinstance(source, Mapping) and "model" in source and not _is_tensor_map(source):
+        source = source["model"]
+    if hasattr(source, "state_dict"):
+        source = source.state_dict()
+    if not isinstance(source, Mapping):
+        raise TypeError(f"cannot interpret checkpoint of type {type(source)}")
+    out = {}
+    for k, v in source.items():
+        if k.startswith("model.model."):
+            k = k[len("model."):]
+        if translate_key(k) is None and not k.endswith("num_batches_tracked"):
+            continue  # the fixed DFL projection (decode_boxes computes it), non-model keys
+        v = v if torch.is_tensor(v) else torch.as_tensor(np.asarray(v))
+        out[k] = v.float() if v.is_floating_point() else v  # fp16 checkpoints
+    return out

@@ -13,7 +13,6 @@ from __future__ import annotations
 
 import os
 from dataclasses import fields
-from typing import Mapping
 
 import numpy as np
 import torch
@@ -24,7 +23,7 @@ from ..models.yolo.masks import assemble_masks, masks_to_polygons, polygon_to_ma
 from ..models.yolo.model import YOLO11Seg
 from ..models.yolo.nms import Detections, nms
 from ..models.yolo.preprocess import boxes_to_original, letterbox
-from ..models.yolo.weights import variables_to_state_dict
+from ..models.yolo.weights import load_checkpoint
 from ..utils.image import IMREAD_COLOR, read_image
 
 
@@ -44,20 +43,24 @@ class Detector:
         nc: number of classes (must match the checkpoint).
         scale: YOLO11 compound scale.
         imgsz: square letterbox size.
+        dtype: the network's compute dtype, ``"float32"`` or ``"bfloat16"``
+            (the parameters stay float32; boxes and scores leave as
+            float32, as ``YOLO11Seg`` and ``nms`` say).
         device: default the card (an error when there is none); ``"cpu"``
             runs on the CPU.
     """
 
     def __init__(self, yolo_weights, nc: int = 5, scale: str = "n", imgsz: int = 640,
-                 max_det: int = 32, pre_nms: int = 1024, device: str | torch.device = "cuda"):
+                 max_det: int = 32, pre_nms: int = 1024, dtype: str = "float32",
+                 device: str | torch.device = "cuda"):
         self.device = resolve_device(device)
-        self.nc, self.scale = nc, scale
+        self.nc, self.scale, self.dtype = nc, scale, dtype
         self.imgsz = imgsz
         self.max_det = max_det
         # pre-NMS candidate pool: plenty at product confidence (0.25+)
         self.pre_nms = pre_nms
-        model = YOLO11Seg(nc=nc, scale=scale)
-        model.load_state_dict(_load_variables(yolo_weights), strict=True)
+        model = YOLO11Seg(nc=nc, scale=scale, dtype=dtype)
+        model.load_state_dict(load_checkpoint(yolo_weights), strict=True)
         self.model = model.to(self.device).eval()
         self.variables = self.model.state_dict()
 
@@ -129,7 +132,7 @@ def predict_batch(model: YOLO11Seg, imgs: torch.Tensor, imgsz: int, pre_nms: int
 
 
 def detect_mask(weights_path, image, class_id: int = 0, nc: int = 5, scale: str = "n",
-                device: str | torch.device = "cuda") -> np.ndarray:
+                dtype: str = "float32", device: str | torch.device = "cuda") -> np.ndarray:
     """The (H, W) uint8 mask of the first detection of ``class_id`` in
     ``image`` (a path, read as BGR, or a BGR array), all zero when there is
     none: the model loaded for the call, a 640 letterbox, confidence 0.7."""
@@ -142,67 +145,8 @@ def detect_mask(weights_path, image, class_id: int = 0, nc: int = 5, scale: str 
     else:
         raise TypeError("Input must be a path or an image")
     h, w = img.shape[:2]
-    det = Detector(weights_path, nc=nc, scale=scale, device=device)
+    det = Detector(weights_path, nc=nc, scale=scale, dtype=dtype, device=device)
     for r in det.detect_mask(img, class_id=class_id, conf=0.7):
         if r["class_id"] == class_id:
             return r["mask"]
     return np.zeros((h, w), np.uint8)
-
-
-def _is_tensor_map(d) -> bool:
-    return all(hasattr(v, "shape") for v in d.values())
-
-
-def _torch_load(path):
-    """``torch.load`` of a full Ultralytics checkpoint without Ultralytics:
-    classes that do not import unpickle as empty ``nn.Module``s, enough to
-    walk to ``state_dict()``."""
-    import pickle
-
-    class StubUnpickler(pickle.Unpickler):
-        def find_class(self, module, name):
-            try:
-                return super().find_class(module, name)
-            except (ImportError, AttributeError):
-                return type(name, (torch.nn.Module,), {})
-
-    class StubPickleModule:
-        Unpickler = StubUnpickler
-
-        @staticmethod
-        def load(f, **kw):
-            return StubUnpickler(f).load()
-
-    return torch.load(path, map_location="cpu", weights_only=False,
-                      pickle_module=StubPickleModule)
-
-
-def _load_variables(source) -> dict[str, torch.Tensor]:
-    """A weights source -> the port model's float32 state dict (the port's
-    ``variables``)."""
-    if isinstance(source, (str, os.PathLike)):
-        path = str(source)
-        if os.path.isdir(path):
-            raise NotImplementedError(
-                "orbax checkpoint directories are not supported; export the variables "
-                "to .npz or an Ultralytics-style state dict")
-        if path.endswith(".npz"):
-            return variables_to_state_dict(np.load(path, allow_pickle=True)["variables"].item())
-        source = _torch_load(path)
-    if isinstance(source, Mapping) and "params" in source:
-        if not _is_tensor_map(source["params"]):
-            return variables_to_state_dict(source)  # flax variables
-        source = source["params"]  # a port checkpoint
-    if isinstance(source, Mapping) and "model" in source and not _is_tensor_map(source):
-        source = source["model"]
-    if hasattr(source, "state_dict"):
-        source = source.state_dict()
-    if not isinstance(source, Mapping):
-        raise TypeError(f"cannot interpret checkpoint of type {type(source)}")
-    out = {}
-    for k, v in source.items():
-        if ".dfl." in k:  # the fixed DFL projection: decode_boxes computes it
-            continue
-        v = v if torch.is_tensor(v) else torch.as_tensor(np.asarray(v))
-        out[k] = v.float() if v.is_floating_point() else v  # fp16 checkpoints
-    return out

@@ -21,7 +21,10 @@ destination cloud, as the JAX package's ``vmap`` over the loop does: the
 loop runs while any chain continues, a chain that has stopped keeps its
 state, and ``n_iters`` is counted per chain. Every evaluation flattens the
 chains into one query set, so one K1 launch serves the whole batch; on the
-CPU each chain rounds exactly as an unbatched call does.
+CPU each chain rounds exactly as an unbatched call does, and on the card
+each chain's sums over its points run in an order fixed by the point count
+(``kabsch.batch_sum``), so a chain's result does not depend on how many
+chains run beside it.
 """
 from __future__ import annotations
 
@@ -34,7 +37,7 @@ from .. import chains
 from ..geom3d.cloud import PointCloud
 from ..geom3d.knn import nearest_neighbor
 from ..geom3d.se3 import axis_angle_to_R, make_T, transform_points
-from .kabsch import kabsch, kabsch_batched, matmul_small
+from .kabsch import batch_sum, kabsch, kabsch_batched, matmul_small
 
 
 @dataclass
@@ -310,7 +313,7 @@ def icp_point_to_point_batched(
         inl = src_valid & found & (d <= max_corr_dist)
         n_inl = inl.sum(-1)
         fitness = n_inl.to(f32) / n_src.to(f32)
-        rmse = torch.sqrt(torch.where(inl, d * d, torch.zeros_like(d)).sum(-1)
+        rmse = torch.sqrt(batch_sum(torch.where(inl, d * d, torch.zeros_like(d)), -1)
                           / torch.clamp(n_inl, min=1))
         return moved, idx, inl, fitness, rmse
 

@@ -17,6 +17,14 @@ as a scalar loop, which rounds differently from the BLAS call a 2-D ``@``
 makes, so the batched 4x4 products are padded onto the BLAS route; a 3x3
 matrix-vector product is summed in the BLAS gemv's order; ``torch.trace``
 accumulates in float64.
+
+On the card a member's result must not depend on the batch beside it
+either, and a CUDA reduction splits its rows by the batch's size (a (16,
+2048) row sum rounds each row apart at B = 8). So ``batch_sum`` sums the
+batched problems' weights, centroids and cross-covariances over their
+points by ``tree_sum``, a pairwise tree of elementwise adds whose order is
+fixed by the point count alone; on the CPU it is the plain ``sum``, which
+already rounds each row alike at every batch size.
 """
 from __future__ import annotations
 
@@ -24,7 +32,7 @@ import itertools
 
 import torch
 
-from ..geom3d.se3 import quat_to_R
+from ..geom3d.se3 import make_T, quat_to_R
 
 # row/column indices of the 16 3x3 minors of a 4x4 matrix, in (i, j) order
 _MINOR_ROWS = [[r for r in range(4) if r != i] for i in range(4)]
@@ -105,6 +113,12 @@ def kabsch(src: torch.Tensor, dst: torch.Tensor, weights: torch.Tensor):
     return torch.where(ok, R, eye), torch.where(ok, t, torch.zeros_like(t))
 
 
+def kabsch_T(src: torch.Tensor, dst: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """``kabsch`` as one (4, 4) transform."""
+    R, t = kabsch(src, dst, weights)
+    return make_T(R, t)
+
+
 def matmul_small(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Batched product of (..., r, k) and (..., k, c) matrices with r, k, c
     <= 8, rounded on the CPU as the unbatched 2-D ``@`` rounds (see the
@@ -141,16 +155,63 @@ def _quest_q_batched(N: torch.Tensor) -> torch.Tensor:
     return q / torch.clamp(torch.linalg.vector_norm(q, dim=-1), min=1e-30)[..., None]
 
 
+def tree_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Sum over ``dim`` as a pairwise tree: zero-padded to a power of two,
+    then halved by elementwise adds of the two halves. The order of the
+    adds is fixed by the length of ``dim`` alone, so every slice rounds
+    alike whatever the other dimensions hold, and the card's result is the
+    CPU's bit for bit (elementwise adds, no contraction)."""
+    dim = dim % x.dim()
+    n = x.shape[dim]
+    if n == 0:
+        return x.sum(dim)
+    pad = (1 << (n - 1).bit_length()) - n
+    if pad:
+        shape = list(x.shape)
+        shape[dim] = pad
+        x = torch.cat([x, x.new_zeros(shape)], dim)
+    while x.shape[dim] > 1:
+        h = x.shape[dim] // 2
+        x = x.narrow(dim, 0, h) + x.narrow(dim, h, h)
+    return x.squeeze(dim)
+
+
+def fixed_order(x: torch.Tensor) -> bool:
+    """Whether a batched problem's sums over its points take ``tree_sum``:
+    on the card, where a reduction's order depends on the batch's size."""
+    return x.device.type != "cpu"
+
+
+def batch_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """A batched problem's sum over its points, rounded alike at every
+    batch size: ``tree_sum`` on the card, the plain ``sum`` on the CPU."""
+    return tree_sum(x, dim) if fixed_order(x) else x.sum(dim)
+
+
+def weighted_moments(src: torch.Tensor, dst: torch.Tensor, wn: torch.Tensor, tree: bool):
+    """Weighted centroids ``cs``, ``cd`` (..., 3) and cross-covariance ``S``
+    (..., 3, 3) of src, dst (..., N, 3) under normalised weights (..., N):
+    by ``tree_sum`` when ``tree``, else by the plain sums and product."""
+    if not tree:
+        cs = (src * wn[..., None]).sum(-2)
+        cd = (dst * wn[..., None]).sum(-2)
+        S = ((src - cs[..., None, :]) * wn[..., None]).transpose(-1, -2) @ (dst - cd[..., None, :])
+        return cs, cd, S
+    c = tree_sum(torch.cat([src, dst], -1) * wn[..., None], -2)
+    cs, cd = c[..., :3], c[..., 3:]
+    a = (src - cs[..., None, :]) * wn[..., None]
+    return cs, cd, tree_sum(a[..., :, None] * (dst - cd[..., None, :])[..., None, :], -3)
+
+
 def kabsch_batched(src: torch.Tensor, dst: torch.Tensor, weights: torch.Tensor):
     """``kabsch`` over a leading batch: src, dst (..., N, 3), weights (..., N)
-    -> (R (..., 3, 3), t (..., 3))."""
+    -> (R (..., 3, 3), t (..., 3)); each member's result is independent of
+    the batch (``batch_sum``)."""
     w = weights.to(torch.float32)
-    wsum = w.sum(-1)
+    wsum = batch_sum(w, -1)
     ok = wsum > 1e-12
     wn = w / torch.where(ok, wsum, torch.ones_like(wsum))[..., None]
-    cs = (src * wn[..., None]).sum(-2)
-    cd = (dst * wn[..., None]).sum(-2)
-    S = ((src - cs[..., None, :]) * wn[..., None]).transpose(-1, -2) @ (dst - cd[..., None, :])
+    cs, cd, S = weighted_moments(src, dst, wn, tree=fixed_order(src))
     R = quat_to_R(_quest_q_batched(_davenport(S)))
     t = cd - _matvec3(R, cs)
     eye = torch.eye(3, dtype=R.dtype, device=R.device)

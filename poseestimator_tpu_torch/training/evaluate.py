@@ -120,7 +120,7 @@ EVAL_MAX_DET = 300
 
 
 def eval_grade(detector, pre_nms: int = EVAL_PRE_NMS, max_det: int = EVAL_MAX_DET):
-    """A detector for mAP sweeps: the same weights and device, candidate
+    """A detector for mAP sweeps: the same weights, dtype and device, candidate
     caps raised to at least (pre_nms, max_det); the input itself when its
     caps suffice."""
     if detector.pre_nms >= pre_nms and detector.max_det >= max_det:
@@ -129,7 +129,8 @@ def eval_grade(detector, pre_nms: int = EVAL_PRE_NMS, max_det: int = EVAL_MAX_DE
 
     return Detector(detector.variables, nc=detector.model.nc, scale=detector.scale,
                     imgsz=detector.imgsz, max_det=max(max_det, detector.max_det),
-                    pre_nms=max(pre_nms, detector.pre_nms), device=detector.device)
+                    pre_nms=max(pre_nms, detector.pre_nms), dtype=detector.dtype,
+                    device=detector.device)
 
 
 def evaluate_detector(detector, samples, imgsz: int = 640, conf: float = 0.001,

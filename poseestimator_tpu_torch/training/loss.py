@@ -1,6 +1,12 @@
 """YOLO11-seg training losses (counterpart of
 ``poseestimator_tpu/training/loss.py``): BCE classification, CIoU + DFL box
-regression and prototype-mask BCE over TAL targets."""
+regression and prototype-mask BCE over TAL targets.
+
+A bfloat16 model's head outputs meet the float32 targets as JAX promotes
+them: an op of a bfloat16 and a float32 tensor computes in float32, an op
+of a bfloat16 tensor alone (the logistic, the log-softmax, the BCE's
+``exp(-|x|)``, the mask logits' product) rounds to bfloat16, and every loss
+part is float32."""
 from __future__ import annotations
 
 import math
@@ -54,8 +60,14 @@ def _dfl_loss(box_logits: torch.Tensor, target_dist: torch.Tensor, reg_max: int 
 
 
 def bce(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
-    """Elementwise binary cross-entropy on logits, in the stable form."""
-    return torch.clamp(logits, min=0) - logits * targets + torch.log1p(torch.exp(-logits.abs()))
+    """Elementwise binary cross-entropy on logits, in the stable form. With
+    bfloat16 logits and float32 targets the result is float32, and the
+    softplus term's ``exp`` rounds to bfloat16 while its ``log1p`` does not:
+    XLA drops the rounding of an op whose result is promoted straight to
+    float32, as this sum promotes it."""
+    dt = torch.promote_types(logits.dtype, targets.dtype)
+    x = logits.to(dt)
+    return torch.clamp(x, min=0) - x * targets + torch.log1p(torch.exp(-logits.abs()).to(dt))
 
 
 def segmentation_loss(raw: dict, gt_boxes: torch.Tensor, gt_classes: torch.Tensor,

@@ -188,9 +188,8 @@ class Trainer:
     is the mesh's and ``cfg.batch`` is the global batch."""
 
     def __init__(self, cfg: TrainConfig, nc: Optional[int] = None, mesh=None):
-        if cfg.dtype != "float32":
-            raise NotImplementedError(
-                f"dtype {cfg.dtype!r}: the port's detector runs float32 only")
+        if cfg.dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"dtype {cfg.dtype!r}: float32 or bfloat16")
         self.cfg = cfg
         if mesh is None and torch.distributed.is_available() \
                 and torch.distributed.is_initialized():
@@ -206,7 +205,9 @@ class Trainer:
                              f"{self.mesh.size}")
         self.spec: DatasetSpec = load_dataset_yaml(cfg.data)
         self.nc = nc if nc is not None else max(self.spec.nc, 1)
-        self.model = YOLO11Seg(nc=self.nc, scale=cfg.scale).to(self.device)
+        # the model computes in cfg.dtype; its parameters, the optimiser,
+        # the EMA, the loss and the checkpoints stay float32
+        self.model = YOLO11Seg(nc=self.nc, scale=cfg.scale, dtype=cfg.dtype).to(self.device)
         for m in self.model.modules():
             if isinstance(m, BatchNorm2d):
                 m.mesh = self.mesh

@@ -14,6 +14,18 @@ import numpy as np
 
 
 @dataclass
+class TemplateMetrics:
+    """One template's registration counts, the shape the reference's
+    registration helpers define."""
+
+    template_idx: int
+    num_correspondences: int
+    num_inliers: int
+    num_s_inliers: int
+    num_t_inliers: int
+
+
+@dataclass
 class FrameMetrics:
     """One tracking-loop frame."""
 

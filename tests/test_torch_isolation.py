@@ -1,6 +1,6 @@
 """The port stands alone: importing ``poseestimator_tpu_torch`` (every
-module, ``parallel`` among them) and ``chip_smoke.py`` loads neither ``jax``
-nor ``poseestimator_tpu``,
+module, ``parallel`` and the ``compat`` namespace among them) and
+``chip_smoke.py`` loads neither ``jax`` nor ``poseestimator_tpu``,
 and works with ``jax``, flax, optax, orbax, OpenCV, PIL, PyYAML, imageio and
 pyrealsense2 made unimportable; every app builds its parser; the entry
 points, the apps and the trainer and generator included, refuse to run
@@ -31,12 +31,14 @@ from poseestimator_tpu_torch.geom3d.camera import Intrinsics
 import numpy as np
 from poseestimator_tpu_torch.training.synth import SynthConfig, generate
 from poseestimator_tpu_torch.training.trainer import TrainConfig, Trainer
+from poseestimator_tpu_torch.compat.EstimHelpers import HelpersRealtime
 raised = []
 for call in (lambda: resolve_device(),
              lambda: FusedFrame(YOLO11Seg(nc=5), np.zeros((8, 3), np.float32),
                                 np.zeros((4, 3), np.int32), Intrinsics.from_fov(60, 64, 48)),
              lambda: Trainer(TrainConfig(data="x")),
-             lambda: generate(SynthConfig(cad=["x"], out="x"))):
+             lambda: generate(SynthConfig(cad=["x"], out="x")),
+             lambda: HelpersRealtime.enforce_upright_pose_y_up(np.eye(4))):
     try:
         call()
         raised.append(False)
@@ -88,14 +90,19 @@ def test_port_imports_no_jax_and_needs_cuda_unless_cpu():
               "training.data", "training.trainer", "training.evaluate", "training.synth",
               "apps.generate", "apps.train", "apps.val", "parallel", "parallel.mesh",
               "parallel.bigcloud", "parallel.registration", "parallel.tracking",
-              "parallel.serving"):
+              "parallel.serving", "compat", "compat.main_image", "compat.main_realsense",
+              "compat.main_seibersdorf", "compat.EstimHelpers",
+              "compat.EstimHelpers.Detector", "compat.EstimHelpers.PoseEstimator",
+              "compat.EstimHelpers.RealSenseClass", "compat.EstimHelpers.detection_utils",
+              "compat.EstimHelpers.HelpersRealtime", "compat.EstimHelpers.registration_utils",
+              "compat.EstimHelpers.template_creation"):
         assert f"poseestimator_tpu_torch.{m}" in res["modules"]
     assert not res["native_touched"]  # importing builds and loads nothing
     assert res["jax"] == [], res["jax"]
     assert res["reference"] == [], res["reference"]
     assert res["cpu_ok"]
     if not torch.cuda.is_available():
-        assert res["raised"] == [True] * 4
+        assert res["raised"] == [True] * 5
         assert res["apps_raised"] == [True] * 8
 
 

@@ -483,3 +483,38 @@ def test_sharded_chamfer_on_a_world_one_nccl_mesh(tmp_path):
     r = json.loads(out.read_text())
     assert (r["backend"], r["size"], r["device"], r["launches"]) == ("nccl", 1, "cuda:0", 2)
     assert abs(r["chamfer"] - r["plain"]) <= 1e-6 * r["plain"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N", [(80, 128), (16, 768), (16, 2048)])
+def test_batched_registration_does_not_depend_on_the_batch(B, N):
+    """The template search's batched registration at its shapes (the coarse
+    stage's 80 chains x 128 points, the polish stages' 16 x 768 and 16 x
+    2048) on the card: ``kabsch_batched`` and ``icp_point_to_point_batched``
+    give every chain the same bits in the whole batch, in its first half
+    and alone (their sums over points run in ``kabsch.tree_sum``'s order;
+    a plain CUDA row sum rounds a (16, 2048) row apart at B = 8)."""
+    _need_card()
+    from test_torch_fixed_order import _chains
+
+    from poseestimator_tpu_torch.geom3d.cloud import PointCloud
+    from poseestimator_tpu_torch.registration.icp import icp_point_to_point_batched
+    from poseestimator_tpu_torch.registration.kabsch import kabsch_batched
+
+    src, valid, dst, T0 = _chains(B, N, 2 * B + N)
+    src, valid, T0 = src.cuda(), valid.cuda(), T0.cuda()
+    dst = PointCloud(points=dst.points.cuda(), valid=dst.valid.cuda())
+    moved = src @ T0[:, :3, :3].transpose(-1, -2) + T0[:, None, :3, 3]
+    w = valid.float()
+    R, t = kabsch_batched(src, moved, w)
+    kw = dict(max_corr_dist=0.02, max_iterations=30, relative_fitness=1e-6, relative_rmse=1e-6)
+    r = icp_point_to_point_batched(src, valid, dst, init_T=T0, **kw)
+    h = B // 2
+    for idx in (slice(0, h), slice(3, 4), slice(B - 1, B)):
+        Rh, th = kabsch_batched(src[idx], moved[idx], w[idx])
+        assert torch.equal(Rh, R[idx]) and torch.equal(th, t[idx])
+        rh = icp_point_to_point_batched(src[idx], valid[idx], dst, init_T=T0[idx], **kw)
+        assert torch.equal(rh.T, r.T[idx]) and torch.equal(rh.n_iters, r.n_iters[idx])
+        assert torch.equal(rh.fitness, r.fitness[idx])
+        assert torch.equal(rh.inlier_rmse, r.inlier_rmse[idx])
+    assert int(r.n_iters.max()) >= 3

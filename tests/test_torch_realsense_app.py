@@ -101,3 +101,15 @@ def test_synthetic_then_replay_of_its_recording(scene, wired, tmp_path):  # noqa
 def test_multi(scene, wired):  # noqa: F811
     assert app.main(_argv(scene, "synthetic", "--multi", frames=MULTI_FRAMES)) == 0
     assert wired["tracks"] == [1] * MULTI_FRAMES
+
+
+def test_detector_dtype_bfloat16(scene, wired, monkeypatch):  # noqa: F811
+    """``--detector-dtype bfloat16`` runs the session with the app's
+    detector built in bfloat16 (the fused bfloat16 frame itself is held to
+    the JAX package's in ``tests/test_torch_bf16.py``)."""
+    seen = {}
+    make = app.Detector
+    monkeypatch.setattr(app, "Detector", lambda *a, **k: (seen.update(k), make(*a, **k))[1])
+    assert app.main(_argv(scene, "synthetic", "--detector-dtype", "bfloat16", frames=2)) == 0
+    assert seen["dtype"] == "bfloat16"
+    assert len(wired["poses"]) == 2 and all(np.isfinite(P).all() for P in wired["poses"])

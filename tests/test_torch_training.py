@@ -313,11 +313,16 @@ def test_optimizer_law_and_schedule_match_optax(opt, tmp_path, dataset):
 
 
 def test_training_config_limits(dataset):
-    """bfloat16 and device lists raise ``NotImplementedError`` (the latter
-    pointing to torchrun and ``Trainer(mesh=)``); every JAX ``TrainConfig``
-    field exists with its default, ``device`` aside."""
-    with pytest.raises(NotImplementedError, match="float32"):
-        ptrainer.Trainer(ptrainer.TrainConfig(data=dataset, dtype="bfloat16", device="cpu"))
+    """A bfloat16 ``TrainConfig`` builds a trainer whose model computes in
+    bfloat16 over float32 parameters, an unknown dtype raises, and device
+    lists raise ``NotImplementedError`` pointing to torchrun and
+    ``Trainer(mesh=)``; every JAX ``TrainConfig`` field exists with its
+    default, ``device`` aside."""
+    tr = ptrainer.Trainer(ptrainer.TrainConfig(data=dataset, dtype="bfloat16", device="cpu"))
+    assert tr.model.dtype == torch.bfloat16
+    assert all(p.dtype == torch.float32 for p in tr.model.parameters())
+    with pytest.raises(ValueError, match="float16"):
+        ptrainer.Trainer(ptrainer.TrainConfig(data=dataset, dtype="float16", device="cpu"))
     with pytest.raises(NotImplementedError, match="torchrun.*mesh="):
         ptrainer.Trainer(ptrainer.TrainConfig(data=dataset, device="0,1"))
     j, p = jtrainer.TrainConfig(data=dataset), ptrainer.TrainConfig(data=dataset)
@@ -457,3 +462,37 @@ def test_checkpoint_round_trip_into_detector(dataset, tmp_path):
     assert hist2[0]["epoch"] == 1 and state2.step == len(tr2.loader)
     m = tr2.evaluate_map(state2)
     assert 0.0 <= m["map50"] <= 1.0 and "map50_95" in m
+
+
+def test_train_app_runs_bfloat16(dataset, tmp_path, monkeypatch):
+    """``apps/train.py --dtype bfloat16`` trains an epoch on the CPU: the
+    model computes in bfloat16, the loss parts are finite, and the
+    checkpoint's weights are float32 and load into a bfloat16
+    ``Detector``."""
+    from functools import partialmethod
+
+    from poseestimator_tpu_torch.apps import train as train_app
+
+    seen = {}
+    fit = ptrainer.Trainer.fit
+
+    def fit_recorded(self, *a, **k):
+        seen["dtype"] = self.model.dtype
+        state, hist = fit(self, *a, **k)
+        seen["hist"] = hist
+        return state, hist
+
+    monkeypatch.setattr(ptrainer.Trainer, "fit",
+                        partialmethod(fit_recorded, log=lambda *a: None, tensorboard=False))
+    assert train_app.main(["--data", dataset, "--epochs", "1", "--imgsz", "64", "--batch", "2",
+                           "--dtype", "bfloat16", "--device", "cpu", "--mosaic", "0",
+                           "--project", str(tmp_path), "--name", "bf16"]) == 0
+    assert seen["dtype"] == torch.bfloat16
+    assert all(np.isfinite(v) for k, v in seen["hist"][0].items() if k.startswith("train/"))
+    payload = torch.load(tmp_path / "bf16" / "last.pt", weights_only=True)
+    assert all(v.dtype == torch.float32 for v in payload["params"].values()
+               if v.is_floating_point())
+    det = Detector(str(tmp_path / "bf16" / "last.pt"), nc=1, imgsz=64, dtype="bfloat16",
+                   device="cpu")
+    d, _, _ = det(np.zeros((64, 64, 3), np.uint8), conf=0.0)
+    assert d.scores.dtype == torch.float32 and torch.isfinite(d.scores).all()
