@@ -55,14 +55,14 @@ from ..geom3d.sampling import make_draws, random_sample, voxel_down_sample
 from ..geom3d.se3 import pca_axes, transform_points
 from ..registration.features import match_features
 from ..registration.icp import icp_point_to_point_batched
-from ..registration.kabsch import matmul_small
+from ..registration.kabsch import batch_sum, matmul_small
 from ..registration.ransac import ransac_registration
 from ..registration.teaser import TeaserParams, teaser_solve
 from ..render.mesh import TriangleMesh, decimate_to_faces, pad_faces
 from ..render.points import render_depth
-from ..render.raster import render_depth_mesh
+from ..render.raster import render_depth_mesh, render_depth_mesh_batched
 from ..templates.db import load_templates
-from .window import window_dims, window_for_object, window_gather, window_origin
+from .window import window_dims, window_for_object, window_gather_batched, window_origin
 
 SEARCH_CAP = 1024  # per-cloud point budget after the voxel downsample
 # face budget of the predicted-view raster; larger CADs are decimated once
@@ -281,9 +281,13 @@ class PoseEstimator:
 def _pca_hypotheses(src_pts, src_valid, dst: PointCloud) -> torch.Tensor:
     """(T, 4, 4, 4) rigid hypotheses aligning each src's centroid and PCA
     axes to dst's under the 4 right-handed sign choices. The set does not
-    depend on the eigensolver's column signs; its order does."""
-    c_s, c_d = centroid(src_pts, src_valid), dst.centroid()
-    R_s, _ = pca_axes(src_pts, src_valid)
+    depend on the eigensolver's column signs; its order does. Each
+    template's statistics are its own unbatched ones: the card's batched
+    sums and eigensolver round a template apart by how many run beside
+    it."""
+    c_s = torch.stack([centroid(p, v) for p, v in zip(src_pts, src_valid)])
+    R_s = torch.stack([pca_axes(p, v)[0] for p, v in zip(src_pts, src_valid)])
+    c_d = dst.centroid()
     R_d, _ = pca_axes(dst.points, dst.valid)
     signs = torch.tensor(_PCA_SIGNS, dtype=torch.float32, device=src_pts.device)
     R0 = R_d @ (R_s[:, None] * signs[None, :, None, :]).transpose(-1, -2)  # R_d diag(s) R_s^T
@@ -390,48 +394,33 @@ def _score_templates(prep, tpl_pts, tpl_valid, tpl_fpfh, mesh_v, mesh_f, intr: I
             return render_depth(mesh_v, mesh_f, T, ri, near=0.01, far=5.0)
         return render_depth_mesh(mesh_v, mesh_f, T, ri, near=0.01, far=5.0)
 
-    def predicted_view(T, ri, n, win, key):
-        if win is None:
-            d_r = render_full(T, ri)
-            view = backproject_depth(d_r, ri, depth_min=0.01, depth_max=5.0)
+    def predicted_views(Ts, chains, ri, n, win, s):
+        # one render for the stage; each chain then samples its own window
+        # with its own draws, in chain order
+        if render_kind == "points":
+            deps, o = [render_full(T, ri) for T in Ts], None
         else:
-            o = window_origin(mesh_v, T, ri, win[0], win[1])
-            d_r = render_depth_mesh(mesh_v, mesh_f, T, ri, near=0.01, far=5.0,
-                                    origin=o.to(torch.float32), out_hw=win)
-            view = backproject_depth(d_r, ri, depth_min=0.01, depth_max=5.0, origin=o)
-        return random_sample(view, n, gen, view_draws.get(key))
-
-    def view_score(T):
-        if win_r is None:
-            dep = render_full(T, intr_r)
-            obs_d, obs_s, msk = obs_depth, obs_sil_r, mask_sil_r
-            out_mask = out_obs = 0
-        else:
-            o = window_origin(mesh_v, T, intr_r, win_r[0], win_r[1])
-            dep = render_depth_mesh(mesh_v, mesh_f, T, intr_r, near=0.01, far=5.0,
-                                    origin=o.to(torch.float32), out_hw=win_r)
-            obs_d = window_gather(obs_depth, o[1], o[0], *win_r)
-            obs_s = obs_d > 0
-            msk = window_gather(mask_sil_r, o[1], o[0], *win_r)
-            out_mask = n_mask_total - msk.sum()
-            out_obs = n_obs_total - obs_s.sum()
-        sil = dep > 0
-        both = sil & obs_s
-        n_both = torch.clamp(both.sum(), min=1)
-        dz = torch.where(both, (dep - obs_d).abs(), torch.zeros_like(dep)).sum() / n_both
-        if have_mask:
-            # dense silhouette IoU: sees the tangential slides that depth
-            # residuals on smooth faces cannot
-            inter = (sil & msk).sum()
-            union = torch.clamp((sil | msk).sum() + out_mask, min=1)
-            return dz + 1.0 * (1.0 - inter / union)
-        # the splat=0 observed silhouette is sparse: only observed pixels the
-        # prediction misses are penalised
-        miss = ((obs_s & ~sil).sum() + out_obs) / n_obs_total
-        return dz + 0.25 * miss
+            deps, o = render_windows(mesh_v, mesh_f, Ts, ri, win)
+        return [random_sample(backproject_depth(d, ri, depth_min=0.01, depth_max=5.0,
+                                                origin=None if o is None else o[i]),
+                              n, gen, view_draws.get((s, c)))
+                for i, (d, c) in enumerate(zip(deps, chains))]
 
     def view_scores(Ts):
-        return torch.stack([view_score(T) for T in Ts])
+        if render_kind == "points":
+            dep, o = torch.stack([render_full(T, intr_r) for T in Ts]), None
+        else:
+            dep, o = render_windows(mesh_v, mesh_f, Ts, intr_r, win_r)
+        if o is None:
+            obs_d, msk, out_mask, out_obs = obs_depth, mask_sil_r, 0, 0
+        else:
+            obs_d = window_gather_batched(obs_depth, o, *win_r)
+            msk = window_gather_batched(mask_sil_r, o, *win_r)
+            out_mask = n_mask_total - msk.sum((1, 2))
+            out_obs = n_obs_total - (obs_d > 0).sum((1, 2))
+        if have_mask:
+            return window_scores(dep, obs_d, msk, out_mask)
+        return window_scores(dep, obs_d, None, 0, out_obs, n_obs_total)
 
     vox = np.float32(voxel)
     noise_bound = vox * np.float32(1.5)
@@ -479,7 +468,7 @@ def _score_templates(prep, tpl_pts, tpl_valid, tpl_fpfh, mesh_v, mesh_f, intr: I
 
     def polish(Ts, chains, stages, s0):
         for s, (dist, iters, ri, n_view, dst_s, tol_s, win_s) in enumerate(stages, s0):
-            views = [predicted_view(T, ri, n_view, win_s, (s, c)) for T, c in zip(Ts, chains)]
+            views = predicted_views(Ts, chains, ri, n_view, win_s, s)
             d = icp_point_to_point_batched(
                 torch.stack([v.points for v in views]), torch.stack([v.valid for v in views]),
                 dst_s, _f32(np.float32(dist) * vox), max_iterations=iters,
@@ -589,24 +578,49 @@ def score_pose_candidates(mesh_v, mesh_f, Ts, depth, mask, intr: Intrinsics, win
     mask_r = mask[: Hr * 2, : Wr * 2].reshape(Hr, 2, Wr, 2).any(3).any(1)
     n_mask_total = mask_r.sum()
     win = window_dims(intr_r, win_hw)
+    dep, o = render_windows(mesh_v, mesh_f, Ts, intr_r, win)
+    if o is None:
+        return window_scores(dep, obs_d, mask_r, 0)
+    msk = window_gather_batched(mask_r, o, *win)
+    return window_scores(dep, window_gather_batched(obs_d, o, *win), msk,
+                         n_mask_total - msk.sum((1, 2)))
 
-    def score(T):
-        if win is None:
-            dep = render_depth_mesh(mesh_v, mesh_f, T, intr_r, near=0.01, far=5.0)
-            od, msk, out_mask = obs_d, mask_r, 0
-        else:
-            o = window_origin(mesh_v, T, intr_r, win[0], win[1])
-            dep = render_depth_mesh(mesh_v, mesh_f, T, intr_r, near=0.01, far=5.0,
-                                    origin=o.to(torch.float32), out_hw=win)
-            od = window_gather(obs_d, o[1], o[0], *win)
-            msk = window_gather(mask_r, o[1], o[0], *win)
-            out_mask = n_mask_total - msk.sum()
-        sil = dep > 0
-        both = sil & (od > 0)
-        n_both = torch.clamp(both.sum(), min=1)
-        dz = torch.where(both, (dep - od).abs(), torch.zeros_like(dep)).sum() / n_both
-        inter = (sil & msk).sum()
-        union = torch.clamp((sil | msk).sum() + out_mask, min=1)
+
+def render_windows(mesh_v, mesh_f, Ts, ri: Intrinsics, win):
+    """(B, h, w) depth of B poses (B, 4, 4) from one batched K2 launch, each
+    in the window ``win`` around its projected object (or over the full
+    frame when ``win`` is None), and the (B, 2) window origins (None)."""
+    if win is None:
+        return render_depth_mesh_batched(mesh_v, mesh_f, Ts, ri, near=0.01, far=5.0), None
+    o = torch.stack([window_origin(mesh_v, T, ri, win[0], win[1]) for T in Ts])
+    d = render_depth_mesh_batched(mesh_v, mesh_f, Ts, ri, near=0.01, far=5.0,
+                                  origin=o.to(torch.float32), out_hw=win)
+    return d, o
+
+
+def window_scores(dep, obs_d, msk, out_mask, out_obs=0, n_obs_total=1):
+    """Render-and-compare scores (B,) of B predicted windows ``dep`` (B, h,
+    w) against the observed depth ``obs_d`` and detection mask ``msk``
+    windows ((B, h, w), or (h, w) over the full frame), lower is better:
+    the mean depth gap over pixels both see, plus 1 - silhouette IoU, with
+    ``out_mask`` mask pixels outside each window in the union. Without a
+    mask (``msk`` None) the share of observed pixels the prediction misses
+    (``out_obs`` outside the window, of ``n_obs_total``) weighs 0.25. Counts
+    are exact integers and each window's depth sum runs in
+    ``kabsch.batch_sum``'s order, so a score does not depend on B."""
+    sil = dep > 0
+    obs_s = obs_d > 0
+    both = sil & obs_s
+    n_both = torch.clamp(both.sum((1, 2)), min=1)
+    gap = torch.where(both, (dep - obs_d).abs(), torch.zeros_like(dep))
+    dz = batch_sum(gap.flatten(1), 1) / n_both
+    if msk is not None:
+        # dense silhouette IoU: sees the tangential slides that depth
+        # residuals on smooth faces cannot
+        inter = (sil & msk).sum((1, 2))
+        union = torch.clamp((sil | msk).sum((1, 2)) + out_mask, min=1)
         return dz + 1.0 * (1.0 - inter / union)
-
-    return torch.stack([score(T) for T in Ts])
+    # the splat=0 observed silhouette is sparse: only observed pixels the
+    # prediction misses are penalised
+    miss = ((obs_s & ~sil).sum((1, 2)) + out_obs) / n_obs_total
+    return dz + 0.25 * miss

@@ -88,3 +88,10 @@ def window_gather(img: torch.Tensor, oy, ox, h: int, w: int) -> torch.Tensor:
     rows = oy + torch.arange(h, device=img.device)
     cols = ox + torch.arange(w, device=img.device)
     return img[rows[:, None], cols[None, :]]
+
+
+def window_gather_batched(img: torch.Tensor, origins: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """``window_gather`` at each of B origins (B, 2) ``[ox, oy]``: (B, h, w)."""
+    rows = origins[:, 1, None] + torch.arange(h, device=img.device)
+    cols = origins[:, 0, None] + torch.arange(w, device=img.device)
+    return img[rows[:, :, None], cols[:, None, :]]

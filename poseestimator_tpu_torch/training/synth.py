@@ -77,6 +77,8 @@ def _scene_parts(pts, nrm, valid, Ts, colors, light, intr: Intrinsics):
                           torch.zeros((), device=p.device))
         ds.append(d)
         rgbs.append(img.reshape(H, W, 3))
+    if not ds:  # no slot (the mesh instrument without distractors)
+        return pts.new_zeros((0, H, W)), pts.new_zeros((0, H, W, 3))
     return torch.stack(ds), torch.stack(rgbs)
 
 

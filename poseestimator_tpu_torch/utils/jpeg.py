@@ -13,8 +13,9 @@ The output is libjpeg's default decoding, which both OpenCV and PIL return:
 the ``islow`` integer IDCT (``jidctint.c``) with its range-limit table,
 "fancy" triangle upsampling of subsampled chroma (``jdsample.c``), and the
 fixed-point YCbCr -> RGB conversion (``jdcolor.c``); bit for bit
-libjpeg-turbo's output, except on images 3 or fewer pixels wide with
-subsampled chroma (where its SIMD upsampler reads past the edge). Entropy
+libjpeg-turbo's output. As ``jdsample.c`` does, chroma planes of 2 or
+fewer samples across are upsampled 2x horizontally by replication, not by
+the triangle filter (4:2:0 by replication both ways). Entropy
 decoding is a sequential loop over symbols with a 16-bit lookup table per
 Huffman table; everything after it is vectorised over all blocks at once.
 """
@@ -214,6 +215,8 @@ def _fancy_h2v2(x: np.ndarray) -> np.ndarray:
 
 
 def _upsample(plane: np.ndarray, fy: int, fx: int) -> np.ndarray:
+    if fx == 2 and plane.shape[1] <= 2:  # jdsample.c: fancy only above 2 samples
+        return np.repeat(np.repeat(plane.astype(np.int32), 2, 1), fy, 0)
     if (fy, fx) == (1, 1):
         return plane.astype(np.int32)
     if (fy, fx) == (2, 2):

@@ -41,6 +41,10 @@ def _photo(h, w, seed=0):
 
 _SAMPLING = {"444": 0x111111, "422": 0x211111, "420": 0x221111}
 _JPEG_CASES = [(q, s, hw) for hw in ((61, 97), (480, 640)) for q in (75, 95) for s in _SAMPLING]
+# images 1-3 pixels wide or tall: libjpeg upsamples chroma planes of 2 or
+# fewer samples across by replication, not by the triangle filter
+_JPEG_CASES += [(95, s, hw) for hw in ((1, 1), (2, 2), (3, 3), (3, 1), (1, 3), (2, 3), (9, 3),
+                                       (3, 9), (7, 4)) for s in ("422", "420")]
 
 
 @pytest.mark.parametrize("q,sampling,hw", _JPEG_CASES,

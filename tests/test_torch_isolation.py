@@ -3,8 +3,9 @@ module, ``parallel`` and the ``compat`` namespace among them) and
 ``chip_smoke.py`` loads neither ``jax`` nor ``poseestimator_tpu``,
 and works with ``jax``, flax, optax, orbax, OpenCV, PIL, PyYAML, imageio and
 pyrealsense2 made unimportable; every app builds its parser; the entry
-points, the apps and the trainer and generator included, refuse to run
-without CUDA unless asked for the CPU. Checked in a
+points, the apps, the evaluation harnesses, the detection scripts and the
+trainer and generator included, refuse to run without CUDA unless asked
+for the CPU. Checked in a
 fresh interpreter, since this test process imports both packages."""
 import json
 import os
@@ -47,6 +48,8 @@ for call in (lambda: resolve_device(),
 cpu_ok = resolve_device("cpu").type == "cpu"
 from poseestimator_tpu_torch.apps import eval_bop, main_image, main_realsense, main_seibersdorf
 from poseestimator_tpu_torch.apps import generate as generate_app, train, val
+from poseestimator_tpu_torch.apps import (clique_sweep, eval_init, eval_tracking, mirror,
+                                          predict, scaling_eval, testrun)
 from poseestimator_tpu_torch.camera import record
 apps_raised = []
 for app, argv in ((main_image, ["--headless"]),
@@ -57,7 +60,15 @@ for app, argv in ((main_image, ["--headless"]),
                   (record, ["--out", "x"]),
                   (generate_app, ["--cad", "x", "--out", "x"]),
                   (train, ["--data", "x"]),
-                  (val, ["--weights", "x"])):
+                  (val, ["--weights", "x"]),
+                  (eval_tracking, ["--frames", "1"]),
+                  (eval_init, ["--work-dir", "x"]),
+                  (scaling_eval, ["--worlds", "1"]),
+                  (clique_sweep, ["--budget", "1"]),
+                  (predict, ["--image", "x"]),
+                  (testrun, ["--image", "x", "--label", "x", "--save", "x"]),
+                  (mirror, ["--image-dir", "x", "--label-dir", "x", "--out-image-dir", "x",
+                            "--out-label-dir", "x"])):
     app.build_parser().parse_args(argv) if hasattr(app, "build_parser") else None
     try:
         app.main(argv)
@@ -88,7 +99,9 @@ def test_port_imports_no_jax_and_needs_cuda_unless_cpu():
               "utils.overlay", "utils.yaml_subset", "utils.config", "utils.profiling",
               "models.yolo.contours", "utils.imgproc", "training.assigner", "training.loss",
               "training.data", "training.trainer", "training.evaluate", "training.synth",
-              "apps.generate", "apps.train", "apps.val", "parallel", "parallel.mesh",
+              "apps.generate", "apps.train", "apps.val", "apps.eval_tracking",
+              "apps.eval_init", "apps.scaling_eval", "apps.clique_sweep", "apps.predict",
+              "apps.testrun", "apps.mirror", "parallel", "parallel.mesh",
               "parallel.bigcloud", "parallel.registration", "parallel.tracking",
               "parallel.serving", "compat", "compat.main_image", "compat.main_realsense",
               "compat.main_seibersdorf", "compat.EstimHelpers",
@@ -103,7 +116,7 @@ def test_port_imports_no_jax_and_needs_cuda_unless_cpu():
     assert res["cpu_ok"]
     if not torch.cuda.is_available():
         assert res["raised"] == [True] * 5
-        assert res["apps_raised"] == [True] * 8
+        assert res["apps_raised"] == [True] * 15
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):

@@ -518,3 +518,107 @@ def test_batched_registration_does_not_depend_on_the_batch(B, N):
         assert torch.equal(rh.fitness, r.fitness[idx])
         assert torch.equal(rh.inlier_rmse, r.inlier_rmse[idx])
     assert int(r.n_iters.max()) >= 3
+
+
+# --- the template search's batched renders ---------------------------------
+
+def _lshape_windows(B, win, intr, seed):
+    """B poses of the L-shape about the evaluation's view (2 diag out, turned
+    and shifted a little each) and their window origins."""
+    from poseestimator_tpu_torch.geom3d.se3 import look_at
+    from poseestimator_tpu_torch.pipeline.window import window_origin
+
+    v, f = kc.lshape_mesh()
+    diag = float(np.linalg.norm(v.max(0) - v.min(0)))
+    base = kc.GL_TO_CV @ look_at(np.ones(3) / np.sqrt(3) * 2 * diag, np.zeros(3),
+                                 [0.0, 1.0, 0.0]).numpy()
+    rng = np.random.default_rng(seed)
+    Ts = []
+    for _ in range(B):
+        a = rng.uniform(-0.3, 0.3)
+        P = np.eye(4)
+        P[:2, :2] = [[np.cos(a), -np.sin(a)], [np.sin(a), np.cos(a)]]
+        T = P @ base
+        T[:3, 3] += rng.normal(0, 0.02, 3)
+        Ts.append(T.astype(np.float32))
+    vt = torch.from_numpy(v).cuda()
+    ft = torch.from_numpy(np.pad(f, ((0, 256 - len(f)), (0, 0))).astype(np.int64)).cuda()
+    Ts = torch.from_numpy(np.stack(Ts)).cuda()
+    o = torch.stack([window_origin(vt, T, intr, win[0], win[1]) for T in Ts])
+    return vt, ft, Ts, o
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,win,res", [(10, (64, 128), (160, 120)), (26, (64, 128), (160, 120)),
+                                       (10, (128, 128), (320, 240)),
+                                       (26, (128, 128), (320, 240))])
+def test_batched_raster_kernel_at_the_search_shapes(B, win, res):
+    """K2's batched entry at the template search's stages (10-26 chains over
+    the 64 x 128 and 128 x 128 windows): bit for bit the batched plain
+    version, and each window bit for bit the single kernel's render."""
+    _need_card()
+    intr = Intrinsics.from_fov(60.0, *res)
+    vt, ft, Ts, o = _lshape_windows(B, win, intr, B + win[0])
+    coef, bbox = traster.face_coeffs(vt, ft, Ts, intr, near=0.01, origin=o.float())
+    izk = traster.raster_batched(coef, bbox, *win)
+    torch.cuda.synchronize()
+    assert torch.equal(izk, traster.raster_batched_plain(coef, *win, chunk=64))
+    for b in range(B):
+        c1, b1 = traster.face_coeffs(vt, ft, Ts[b], intr, near=0.01, origin=o[b].float())
+        assert torch.equal(traster.raster(c1, b1, *win), izk[b])
+    assert int((izk > 0).sum()) > 100 * B
+
+
+@pytest.mark.cuda
+def test_batched_search_scores_do_not_depend_on_the_batch():
+    """The search's view scores (``score_pose_candidates``: one batched K2
+    render, exact integer counts, each window's depth sum in
+    ``kabsch.tree_sum``'s order) give every pose the same bits in the whole
+    batch, in its first half and alone, on the card."""
+    _need_card()
+    from poseestimator_tpu_torch.pipeline.pose_estimator import score_pose_candidates
+    from poseestimator_tpu_torch.render.raster import render_depth_mesh
+
+    intr = Intrinsics.from_fov(60.0, 640, 480)
+    vt, ft, Ts, _ = _lshape_windows(16, (128, 128), intr.scaled(2), 7)
+    depth = render_depth_mesh(vt, ft, Ts[0], intr, near=0.01, far=5.0)
+    mask = depth > 0
+    full = score_pose_candidates(vt, ft, Ts, depth, mask, intr, (128, 128))
+    for idx in (slice(0, 8), slice(3, 4), slice(15, 16)):
+        assert torch.equal(score_pose_candidates(vt, ft, Ts[idx], depth, mask, intr, (128, 128)),
+                           full[idx])
+    assert torch.isfinite(full).all() and float(full[0]) < float(full[1:].min())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("points", [128, 256])
+def test_search_scores_on_half_the_templates_equal_the_whole(points):
+    """The whole template search (PCA and TEASER hypotheses, coarse ICP,
+    polish, scores) of the synthetic 16-template fixture on the card: its
+    first 8 templates' poses and scores bit for bit the search of those 8
+    alone. At 256 points a template the card's batched PCA rounded a
+    template apart by the batch; each template's statistics are now its
+    own."""
+    _need_card()
+    from poseestimator_tpu_torch.parallel import make_synthetic_search_inputs
+    from poseestimator_tpu_torch.pipeline import pose_estimator as pe
+
+    dev = torch.device("cuda")
+    fx = make_synthetic_search_inputs(n_tpl=16, C=points, n_cad=1200, device=dev)
+
+    def run(n):
+        gen = torch.Generator(device=dev).manual_seed(0)
+        draws = pe._search_draws(gen, fx["dst_points"].shape[0], 16, 1, fx["intr"], "auto", 2,
+                                 False, "points", dev, None)
+        prep = pe._prep_dst(fx["dst_points"], fx["dst_valid"], fx["intr"], fx["mask_sil"], True,
+                            pe._f32(0.05), gen, draws, score_res=2)
+        mine = {"ransac": draws["ransac"][:n],
+                "views": {k: v for k, v in draws["views"].items() if k[1] < n}}
+        return pe._score_templates(prep, fx["tpl_points"][:n], fx["tpl_valid"][:n],
+                                   fx["tpl_fpfh"][:n], fx["cad_points"], fx["cad_valid"],
+                                   fx["intr"], True, pe._f32(0.05), gen, mine, n_final=None,
+                                   render_kind="points")
+
+    whole, half = run(16), run(8)
+    for a, b in zip(half, whole):
+        assert torch.equal(a, b[:8])
