@@ -179,6 +179,17 @@ full:1:2, bop_ar >= 0.2), ``clique_sweep`` (greedy never above exact),
 ``scaling_eval`` at world 1 and 2 on the card (scores bit-equal) and
 ``predict --folder`` on (t1)'s validation images.
 
+The tools, after them, one ``{"tools": ...}`` line each with the card's
+name and power limit: ``apps/profile_stages.py --frames 30`` in float32 and
+bfloat16 (prefix 10 bit-equal to ``FusedFrame`` on the same frame and
+draws; K2 once a frame from ``render_depth(win)`` on and never before; K1
+sum(n_iters + 1) in ``icp_dense`` and never before; every marginal time
+finite; every prefix traced), ``apps/profile_search.py`` on the random
+worst case (10 reps) and on the bench scene with the 5 and the 26 views (5
+reps; the full prefix bit-equal to ``search_templates`` on the same draws),
+and ``apps/ab_mosaic.py`` cut to 3 epochs of 16 + 8 images at 160. K1 and
+K2 at the searches' new shapes are then held against their plain versions.
+
 Any failed phase exits nonzero.
 
 Output: progress lines (one JSON line per tracker part), then the card's
@@ -250,13 +261,11 @@ def log(msg: str) -> None:
 
 
 def box_surface(rng: np.random.Generator, n: int, half) -> np.ndarray:
-    """Uniform samples on the box shell (the ADD-S model points)."""
-    half = np.asarray(half, np.float32)
-    face = rng.integers(0, 6, size=n)
-    pts = rng.uniform(-1.0, 1.0, size=(n, 3)).astype(np.float32) * half[None, :]
-    ax = face // 2
-    pts[np.arange(n), ax] = np.where(face % 2 == 0, 1.0, -1.0).astype(np.float32) * half[ax]
-    return pts
+    """Uniform samples on the box shell (the ADD-S model points): the bench
+    scene's (``apps/_scene.py``)."""
+    from poseestimator_tpu_torch.apps import _scene
+
+    return _scene.box_surface(rng, n, half)
 
 
 def view_pose(dirv, dist: float, angle: float, look_at, gl_to_cv) -> np.ndarray:
@@ -274,12 +283,11 @@ def view_pose(dirv, dist: float, angle: float, look_at, gl_to_cv) -> np.ndarray:
 
 
 def motion_delta() -> np.ndarray:
-    """One camera period of motion: 0.01 rad about z plus (2, 0, 1) mm."""
-    c, s = np.cos(0.01), np.sin(0.01)
-    d = np.eye(4, dtype=np.float32)
-    d[:3, :3] = np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]], np.float32)
-    d[:3, 3] = [0.002, 0.0, 0.001]
-    return d
+    """One camera period of motion: 0.01 rad about z plus (2, 0, 1) mm (the
+    bench scene's, ``apps/_scene.py``)."""
+    from poseestimator_tpu_torch.apps import _scene
+
+    return _scene.motion_delta()
 
 
 def call_ms(torch, fn, reps: int = 100, warmup: int = 10) -> float:
@@ -2656,6 +2664,19 @@ def apps_launches(parts: dict, k: str) -> dict:
     return out
 
 
+def tools_launches(parts: dict, k: str) -> dict:
+    """A kernel's launches in the tools phase by prefix (``k``: "k1", "k2",
+    "k1_batched", "k2_batched"): profile_stages' over its timed frames (the
+    single kernels), profile_search's a search."""
+    out = {}
+    for p, rec in parts.items():
+        if p.startswith("profile_stages") and f"prefix_{k}_launches" in rec:
+            out[p] = rec[f"prefix_{k}_launches"]
+        elif p.startswith("profile_search"):
+            out[p] = {label: v[k] for label, v in rec["prefix_launches"].items()}
+    return out
+
+
 PAR_POINTS = 16384  # (p1) points a cloud
 PAR_SYNTH_TEMPLATES = 16  # (p2) templates of the synthetic search, as the dry run builds
 PAR_SEARCH_REPS = 3  # (p2) timed warm searches a world
@@ -3217,6 +3238,112 @@ def eval_phase(torch, dev, fnn, rs, images_dir: str, tmp: str, card: str,
     return parts
 
 
+TOOLS_FRAMES = 30  # profile_stages --frames, float32 and bfloat16
+# profile_search: reps of the random worst case and of the realistic searches
+TOOLS_SEARCH = (("random", ["10"]), ("realistic", ["5", "--realistic"]),
+                ("realistic full", ["5", "--realistic", "--view-set", "full"]))
+# ab_mosaic cut from its defaults (60 epochs, 48 + 16 images at 320) to fit a minute
+TOOLS_MOSAIC = {"epochs": (60, 3), "train": (48, 16), "val": (16, 8), "imgsz": (320, 160)}
+
+
+def tools_phase(torch, dev, fnn, rs, tmp: str, card: str) -> dict:
+    """The per-stage profilers and the mosaic A/B through the port's apps/,
+    as their users run them: one ``{"tools": ...}`` line per part with the
+    card's name and power limit (see the module docstring). Returns the
+    parts, the phase's wall seconds and the kernels' inputs of the profiled
+    searches by shape."""
+    import contextlib
+    import io
+
+    from poseestimator_tpu_torch.apps import ab_mosaic, profile_search, profile_stages
+    from poseestimator_tpu_torch.geom3d import knn as knn_mod
+
+    device = str(dev)
+    parts = {}
+    t_phase = time.perf_counter()
+
+    def need(cond, msg):
+        if not cond:
+            fail(f"tools {msg}")
+
+    def emit(name, t, out):
+        rec = {"part": name, "card": card, "wall_s": time.perf_counter() - t, **out}
+        parts[name] = rec
+        log(json.dumps({"tools": rec}))
+        return rec
+
+    def quiet(fn):
+        with contextlib.redirect_stdout(io.StringIO()):
+            return fn()
+
+    stages = profile_stages.STAGES
+    for dtype in ("float32", "bfloat16"):
+        t = time.perf_counter()
+        args = profile_stages.build_parser().parse_args(
+            ["--frames", str(TOOLS_FRAMES), "--dtype", dtype, "--device", device])
+        rec = emit(f"profile_stages {dtype}", t, quiet(lambda: profile_stages.run(args)))
+        name = rec["part"]
+        chk = rec["prefix10_vs_fused_frame"]
+        need(chk["ok"] and chk["pose_max_abs"] == 0.0 and chk["fitness_abs"] == 0.0
+             and chk["n_iters"][0] == chk["n_iters"][1],
+             f"{name}: prefix 10 is not the fused frame on the same frame and draws: {chk}")
+        k1, k2 = rec["prefix_k1_launches"], rec["prefix_k2_launches"]
+        need(all(k2[s] == 0 for s in stages[:5])
+             and all(k2[s] == TOOLS_FRAMES for s in stages[5:]),
+             f"{name}: K2 launches by prefix {k2}, want 0 before render_depth(win) and one "
+             "a frame from it on")
+        need(all(k1[s] == 0 for s in stages[:-1])
+             and k1[stages[-1]] == sum(n + 1 for n in rec["icp_n_iters"]),
+             f"{name}: K1 launches by prefix {k1}, want 0 before icp_dense and "
+             f"sum(n_iters + 1) = {sum(n + 1 for n in rec['icp_n_iters'])} in it")
+        need(all(np.isfinite(v) for v in rec["stages_ms"].values()),
+             f"{name}: a marginal time is not finite: {rec['stages_ms']}")
+        need(all(v is not None for v in rec["kernels"].values()),
+             f"{name}: no device trace: {rec['kernels']}")
+
+    nn_inputs, nnb_inputs, raster_inputs = {}, {}, {}
+    for kind, argv in TOOLS_SEARCH:
+        t = time.perf_counter()
+        args = profile_search.build_parser().parse_args(argv + ["--device", device])
+        W, H = (int(v) for v in args.res.split("x"))
+        prof = profile_search.SearchProfile(device, args.realistic, args.view_set, True, (W, H))
+        rec = emit(f"profile_search {kind}", t, quiet(lambda: profile_search.run(args, prof)))
+        chk = rec["full_vs_search_templates"]
+        need(chk["winner"][0] == chk["winner"][1] and chk["pose_max_abs"] == 0.0
+             and chk["scores_max_abs"] == 0.0,
+             f"profile_search {kind}: the full prefix is not search_templates: {chk}")
+        need(all(np.isfinite(v) for v in rec["marginal_ms"].values()),
+             f"profile_search {kind}: a marginal time is not finite: {rec['marginal_ms']}")
+        need(all(v is not None for v in rec["kernels"].values()),
+             f"profile_search {kind}: no device trace: {rec['kernels']}")
+        # the kernels' inputs of one full search, by shape
+        orig = knn_mod.fused_nn, knn_mod.fused_nn_batched, rs.raster_batched
+        knn_mod.fused_nn = _first_call_recorder(
+            torch, nn_inputs, orig[0], lambda q, qv, d, dv: (q.shape[0], d.shape[0]))
+        knn_mod.fused_nn_batched = _first_call_recorder(
+            torch, nnb_inputs, orig[1], lambda q, qv, d, dv: (q.shape[0], q.shape[1], d.shape[1]))
+        rs.raster_batched = _first_call_recorder(
+            torch, raster_inputs, orig[2], lambda c, b, H, W: (c.shape[0], H, W, c.shape[1]))
+        try:
+            prof.prefix(7, 4, 0)
+        finally:
+            knn_mod.fused_nn, knn_mod.fused_nn_batched, rs.raster_batched = orig
+
+    t = time.perf_counter()
+    args = ab_mosaic.build_parser().parse_args(
+        [x for k, (_, v) in TOOLS_MOSAIC.items() for x in (f"--{k}", str(v))]
+        + ["--device", device])
+    out = quiet(lambda: ab_mosaic.run(args, work_dir=os.path.join(tmp, "ab_mosaic")))
+    rec = emit("ab_mosaic", t, {**out, "reduced_from_defaults": TOOLS_MOSAIC})
+    need(set(rec["rows"]) == {"off", "on"}
+         and all(np.isfinite(r["map50"]) for r in rec["rows"].values()),
+         f"ab_mosaic: rows {rec['rows']}")
+    wall = time.perf_counter() - t_phase
+    log(f"tools phase: {wall:.1f} s")
+    return {"parts": parts, "wall_s": wall, "nn_inputs": nn_inputs,
+            "nn_batched_inputs": nnb_inputs, "raster_batched_inputs": raster_inputs}
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--out", help="also write the JSON summary to this file")
@@ -3240,6 +3367,7 @@ def main(argv=None) -> int:
     try:
         from poseestimator_tpu_torch import kernel_cases as kc
         from poseestimator_tpu_torch import kernels
+        from poseestimator_tpu_torch.apps._scene import make_light_scene
         from poseestimator_tpu_torch.device import resolve_device
         from poseestimator_tpu_torch.geom3d import fused_nn as fnn
         from poseestimator_tpu_torch.geom3d.camera import Intrinsics
@@ -3268,16 +3396,13 @@ def main(argv=None) -> int:
     each = ", ".join(f"{k} {v:.2f} s" for k, v in built.items()) or "cached"
     log(f"build: {build_s:.2f} s ({each})")
 
-    # scene: the bench box one motion delta per frame from z = 0.5 m
+    # scene: the bench box (apps/_scene.py) one motion delta per frame from z = 0.5 m
     intr = Intrinsics.from_fov(60.0, 640, 480)
     intr_r = intr.scaled(2)
     verts = kc.box_vertices()
     diag = float(np.linalg.norm(verts.max(0) - verts.min(0)))
     win = window_for_object(intr_r, diag, 0.5)
-    mesh_v = torch.from_numpy(verts).to(dev)
-    mesh_f = torch.from_numpy(pad_faces(kc.BOX_FACES, 256)).to(dev)
-    T0 = torch.eye(4, device=dev)
-    T0[2, 3] = 0.5
+    _, _, mesh_v, mesh_f, T0, _, _, _ = make_light_scene(intr, np.random.default_rng(0), dev)
 
     # 3. K1
     k1 = check_fused_nn(torch, fnn, dev)
@@ -3393,6 +3518,8 @@ def main(argv=None) -> int:
         # 13. the reference's evaluation harnesses and detection scripts
         images = os.path.join(os.path.dirname(yml), "val", "images")
         evals = eval_phase(torch, dev, fnn, rs, images, tmp, card)
+        # 14. the per-stage profilers and the mosaic A/B
+        tools = tools_phase(torch, dev, fnn, rs, tmp, card)
     # the apps' kernel shapes that no earlier phase gave (checked below)
     new = lambda got, *seen: {k: v for k, v in got.items()  # noqa: E731
                               if not any(k in d for d in seen)}
@@ -3410,6 +3537,12 @@ def main(argv=None) -> int:
                   offline["nn_batched_inputs"], apps_nnb)
     par_k2b = new(par.pop("raster_batched_inputs"), multi["raster_inputs"], apps_k2b,
                   train["raster_inputs"])
+    tools_nn = new(tools.pop("nn_inputs"), search["nn_inputs"], tracker["nn_inputs"],
+                   offline["nn_inputs"], apps_nn, par_nn)
+    tools_nnb = new(tools.pop("nn_batched_inputs"), multi["nn_inputs"],
+                    offline["nn_batched_inputs"], apps_nnb, par_nnb)
+    tools_k2b = new(tools.pop("raster_batched_inputs"), multi["raster_inputs"], apps_k2b,
+                    train["raster_inputs"], par_k2b, search["raster_batched_inputs"])
     search_k = check_search_shapes(torch, fnn, rs, search.pop("nn_inputs"),
                                    search.pop("raster_inputs"))
     tracker_k = check_search_shapes(torch, fnn, rs, tracker.pop("nn_inputs"),
@@ -3425,6 +3558,8 @@ def main(argv=None) -> int:
     synth_kb = check_batched_shapes(torch, fnn, rs, {}, train.pop("raster_inputs"))
     par_k = check_search_shapes(torch, fnn, rs, par_nn, par_k2, where="the parallel phase's")
     par_kb = check_batched_shapes(torch, fnn, rs, par_nnb, par_k2b)
+    tools_kb = check_batched_shapes(torch, fnn, rs, tools_nnb, tools_k2b)
+    tools_k = check_search_shapes(torch, fnn, rs, tools_nn, {}, where="the tools'")
 
     if args.profile:
         # the first 5 frames of the sequence again from the start pose
@@ -3450,6 +3585,7 @@ def main(argv=None) -> int:
         "multi": multi["parts"], "offline": offline, "apps": apps["parts"],
         "train": train["parts"], "parallel": par["parts"], "parallel_wall_s": par["wall_s"],
         "bf16": bf16, "search_b_independence": search_bi, "eval": evals,
+        "tools": tools["parts"], "tools_wall_s": tools["wall_s"],
         "wall_s": time.perf_counter() - wall0,
     }
     log(f"track step alone: {track_ms:.3f} ms; one host read: {read_us:.1f} us")
@@ -3468,7 +3604,8 @@ def main(argv=None) -> int:
                           **{f"tracker {k}": v for k, v in tracker_k["K1"].items()},
                           **{f"offline {k}": v for k, v in offline_k["K1"].items()},
                           **{f"apps {k}": v for k, v in apps_k["K1"].items()},
-                          **{f"parallel {k}": v for k, v in par_k["K1"].items()}},
+                          **{f"parallel {k}": v for k, v in par_k["K1"].items()},
+                          **{f"tools {k}": v for k, v in tools_k["K1"].items()}},
          "search_launches": {n: r["k1_launches"] for n, r in search["scenes"].items()},
          "offline_launches": {n: {"k1_launches": offline[n]["k1_launches"],
                                   "k1_per_frame": offline[n]["k1_per_frame"]}
@@ -3478,6 +3615,7 @@ def main(argv=None) -> int:
              for p in tracker["parts"].values()},
          "apps_launches": apps_launches(apps["parts"], "k1"),
          "parallel_launches_per_rank": par_launches(par, "k1"),
+         "tools_launches": tools_launches(tools["parts"], "k1"),
          "cost_model": k1["cost_model"]},
         {"name": "K2 raster", "route": "cuda",
          "source": "poseestimator_tpu_torch/csrc/raster.cu",
@@ -3499,7 +3637,8 @@ def main(argv=None) -> int:
              "k2_launches", "k2_per_tracked_frame", "k2_per_init")}
              for p in tracker["parts"].values()},
          "apps_launches": apps_launches(apps["parts"], "k2"),
-         "parallel_launches_per_rank": par_launches(par, "k2")},
+         "parallel_launches_per_rank": par_launches(par, "k2"),
+         "tools_launches": tools_launches(tools["parts"], "k2")},
     ]}
     mparts = [multi["parts"][k] for k in ("m1", "m2", "m3")]
     k1b_offline = {"offline_launches": {n: {k: offline[n][k] for k in (
@@ -3509,20 +3648,24 @@ def main(argv=None) -> int:
              "poseestimator_tpu/geom3d/pallas_nn.py:30",
              {**multi_k["K1"], **{f"offline {k}": v for k, v in offline_kb["K1"].items()},
               **{f"apps {k}": v for k, v in apps_kb["K1"].items()},
-              **{f"parallel {k}": v for k, v in par_kb["K1"].items()}},
+              **{f"parallel {k}": v for k, v in par_kb["K1"].items()},
+              **{f"tools {k}": v for k, v in tools_kb["K1"].items()}},
              {**k1b_offline, "parallel_launches_per_rank_per_frame": par_launches(
-                 par, "k1_batched")}),
+                 par, "k1_batched"), "tools_launches_per_search": tools_launches(
+                 tools["parts"], "k1_batched")}),
             ("K2 raster batched", "k2_launches", "poseestimator_tpu_torch/csrc/raster.cu",
              "poseestimator_tpu/render/raster.py:134",
              {**multi_k["K2"], **{f"search {k}": v for k, v in search_kb["K2"].items()},
               **{f"apps {k}": v for k, v in apps_kb["K2"].items()},
               **{f"synth {k}": v for k, v in synth_kb["K2"].items()},
-              **{f"parallel {k}": v for k, v in par_kb["K2"].items()}},
+              **{f"parallel {k}": v for k, v in par_kb["K2"].items()},
+              **{f"tools {k}": v for k, v in tools_kb["K2"].items()}},
              {"synth_launches": {"t1 generate": train["parts"]["t1 generate"][
                  "k2_batched_launches"]},
               "search_launches": {n: r["k2_batched_launches"]
                                   for n, r in search["scenes"].items()},
-              "parallel_launches_per_rank_per_frame": par_launches(par, "k2_batched")})):
+              "parallel_launches_per_rank_per_frame": par_launches(par, "k2_batched"),
+              "tools_launches_per_search": tools_launches(tools["parts"], "k2_batched")})):
         # the main shape: the largest batch of the 640x480 part
         main = max((k for k in shapes if k.startswith("B=")),
                    key=lambda k: int(k.split(" ")[0][2:]))
@@ -3546,9 +3689,11 @@ def main(argv=None) -> int:
     log(f"card: {card}")
     log(json.dumps({k: v for k, v in summary.items() if k not in (
         "frame_ms", "icp_n_iters", "kernels", "search", "tracker", "multi", "icp_options",
-        "offline", "apps", "train", "parallel", "bf16", "search_b_independence", "eval")}))
+        "offline", "apps", "train", "parallel", "bf16", "search_b_independence", "eval",
+        "tools")}))
     log(json.dumps({"search": search}))
     log(json.dumps(kernels_line))
+    log(f"chip_smoke: {time.perf_counter() - wall0:.1f} s in all")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

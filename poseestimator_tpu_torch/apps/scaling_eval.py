@@ -65,8 +65,9 @@ def rank_main(out_dir: str, n_tpl: int, points: int, repeat: int) -> None:
     from ..parallel import make_mesh, make_synthetic_search_inputs, sharded_template_search
 
     mesh = make_mesh("tp")
-    if mesh.device.type == "cpu":  # the ranks share the host's cores
-        torch.set_num_threads(max(1, (os.cpu_count() or 1) // mesh.size))
+    if mesh.device.type == "cpu":  # ranks share the cores, OMP_NUM_THREADS at most
+        share = max(1, (os.cpu_count() or 1) // mesh.size)
+        torch.set_num_threads(min(share, int(os.environ.get("OMP_NUM_THREADS") or share)))
     inputs = make_synthetic_search_inputs(n_tpl=n_tpl, C=points, n_cad=CAD_POINTS,
                                           device=mesh.device)
     inputs.pop("good_idx")

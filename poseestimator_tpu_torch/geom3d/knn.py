@@ -7,8 +7,8 @@ through K1's plain version on the CPU; ``nearest_neighbor_batched`` does
 the same for B problems, each with its own data cloud, in one launch.
 ``knn`` (k > 1: the outlier filter, normals and FPFH neighbourhoods) stays a
 dense distance matrix and a top-k, as in the JAX package; above 64M matrix
-entries it runs in blocks of query rows, which bounds its memory and
-changes no result.
+entries (256K on the CPU, where a block then stays in cache) it runs in
+blocks of query rows, which bounds its memory and changes no result.
 """
 from __future__ import annotations
 
@@ -18,6 +18,7 @@ from .fused_nn import fused_nn, fused_nn_batched
 
 BIG = 3.0e38
 BLOCK_ENTRIES = 64 * 1024 * 1024  # distance-matrix entries per knn block
+BLOCK_ENTRIES_CPU = 256 * 1024
 
 
 def pairwise_sqdist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -40,7 +41,8 @@ def knn(query, query_valid, data, data_valid, k: int, exclude_self: bool = False
     """k nearest data points per query. Returns ``(dists, idx, nb_valid)``,
     each (N, k); distances of the selected pairs are recomputed exactly.
     ``exclude_self``: query i is data point i and is not its own neighbour."""
-    rows = max(BLOCK_ENTRIES // max(data.shape[0], 1), 1)
+    block = BLOCK_ENTRIES if query.is_cuda else BLOCK_ENTRIES_CPU
+    rows = max(block // max(data.shape[0], 1), 1)
     if query.shape[0] <= rows:
         return _knn_block(query, query_valid, data, data_valid, k, 0 if exclude_self else None)
     parts = [_knn_block(query[s:s + rows], query_valid[s:s + rows], data, data_valid, k,

@@ -39,7 +39,7 @@ single-device search bit for bit.
 """
 from __future__ import annotations
 
-from dataclasses import replace
+from dataclasses import dataclass, replace
 from typing import Optional
 
 import numpy as np
@@ -368,6 +368,180 @@ def _search_draws(gen: torch.Generator, dst_capacity: int, n_tpl: int, n_polish:
     return out
 
 
+@dataclass
+class _Scoring:
+    """What a search's predicted views and view scores share: the
+    instrument (``"mesh"``: ``mesh_v``, ``mesh_f`` through the exact raster,
+    windowed; ``"points"``: a point cloud's points and valid through the
+    splat, full frame), the views' intrinsics and windows, the prepared
+    observation, and the generator with the predicted views' draws."""
+
+    mesh_v: torch.Tensor
+    mesh_f: torch.Tensor
+    render_kind: str
+    intr_r: Intrinsics
+    intr_q: Intrinsics
+    win_r: Optional[tuple]
+    win_q: Optional[tuple]
+    obs_depth: torch.Tensor
+    mask_sil_r: torch.Tensor
+    n_obs_total: torch.Tensor
+    n_mask_total: torch.Tensor
+    have_mask: bool
+    gen: Optional[torch.Generator]
+    view_draws: dict
+
+
+def _scoring(prep, mesh_v, mesh_f, intr: Intrinsics, have_mask, gen, draws, win_hw="auto",
+             score_res: int = 2, render_kind: str = "mesh") -> _Scoring:
+    """The ``_Scoring`` of a prepared observation. Object windows: every
+    predicted view and view score renders only a window around the
+    hypothesis's projected object; the window score equals the full-frame
+    score whenever the window covers the predicted silhouette (pixels
+    outside enter through their full-frame totals)."""
+    obs_depth, mask_sil_r = prep[4], prep[5]
+    intr_r, intr_q, win_r, win_q = _search_windows(intr, win_hw, score_res, render_kind)
+    return _Scoring(mesh_v, mesh_f, render_kind, intr_r, intr_q, win_r, win_q, obs_depth,
+                    mask_sil_r, torch.clamp((obs_depth > 0).sum(), min=1), mask_sil_r.sum(),
+                    have_mask, gen, draws.get("views", {}))
+
+
+def _render_full(sc: _Scoring, T, ri):
+    if sc.render_kind == "points":
+        return render_depth(sc.mesh_v, sc.mesh_f, T, ri, near=0.01, far=5.0)
+    return render_depth_mesh(sc.mesh_v, sc.mesh_f, T, ri, near=0.01, far=5.0)
+
+
+def predicted_views(sc: _Scoring, Ts, chains, ri, n, win, s):
+    """The sampled predicted views of polish stage ``s`` at poses ``Ts``:
+    one render for the stage; each chain then samples its own window with
+    its own draws, in chain order."""
+    if sc.render_kind == "points":
+        deps, o = [_render_full(sc, T, ri) for T in Ts], None
+    else:
+        deps, o = render_windows(sc.mesh_v, sc.mesh_f, Ts, ri, win)
+    return [random_sample(backproject_depth(d, ri, depth_min=0.01, depth_max=5.0,
+                                            origin=None if o is None else o[i]),
+                          n, sc.gen, sc.view_draws.get((s, c)))
+            for i, (d, c) in enumerate(zip(deps, chains))]
+
+
+def view_scores(sc: _Scoring, Ts):
+    """Render-and-compare scores (B,) of poses ``Ts`` at the scoring view."""
+    if sc.render_kind == "points":
+        dep, o = torch.stack([_render_full(sc, T, sc.intr_r) for T in Ts]), None
+    else:
+        dep, o = render_windows(sc.mesh_v, sc.mesh_f, Ts, sc.intr_r, sc.win_r)
+    if o is None:
+        obs_d, msk, out_mask, out_obs = sc.obs_depth, sc.mask_sil_r, 0, 0
+    else:
+        obs_d = window_gather_batched(sc.obs_depth, o, *sc.win_r)
+        msk = window_gather_batched(sc.mask_sil_r, o, *sc.win_r)
+        out_mask = sc.n_mask_total - msk.sum((1, 2))
+        out_obs = sc.n_obs_total - (obs_d > 0).sum((1, 2))
+    if sc.have_mask:
+        return window_scores(dep, obs_d, msk, out_mask)
+    return window_scores(dep, obs_d, None, 0, out_obs, sc.n_obs_total)
+
+
+def polish(sc: _Scoring, Ts, chains, stages, s0, voxel):
+    """Render-ICP polish of the chains ``chains`` from poses ``Ts`` through
+    the ladder rungs ``stages`` (numbered from ``s0``)."""
+    vox = np.float32(voxel)
+    for s, (dist, iters, ri, n_view, dst_s, tol_s, win_s) in enumerate(stages, s0):
+        views = predicted_views(sc, Ts, chains, ri, n_view, win_s, s)
+        d = icp_point_to_point_batched(
+            torch.stack([v.points for v in views]), torch.stack([v.valid for v in views]),
+            dst_s, _f32(np.float32(dist) * vox), max_iterations=iters,
+            relative_fitness=tol_s, relative_rmse=tol_s)
+        Ts = matmul_small(d.T, Ts)
+    return Ts
+
+
+def _polish_ladder(sc: _Scoring, prep, use_half: bool):
+    """``(early, final)`` rungs of the render-ICP ladder: the early stages at
+    quarter resolution (half-size clouds in the relaxed regime), the final
+    sub-cm stage at the scoring view."""
+    dst_dense, dst_half = prep[0], prep[1]
+    early_n = 1024 if use_half else 2048
+    early_dst = dst_half if use_half else dst_dense
+    early_tol = 1e-4 if use_half else 1e-6
+    final_tol = 1e-5 if use_half else 1e-6
+    return (((1.0, 60, sc.intr_q, early_n, early_dst, early_tol, sc.win_q),
+             (0.3, 60, sc.intr_q, early_n, early_dst, early_tol, sc.win_q)),
+            ((0.1, 40, sc.intr_r, 2048, dst_dense, final_tol, sc.win_r),))
+
+
+def _teaser_constants(voxel):
+    """``(correspondence threshold, TeaserParams)`` of a voxel size."""
+    noise_bound = np.float32(voxel) * np.float32(1.5)
+    return _f32(noise_bound * np.float32(1.5)), TeaserParams(noise_bound=float(noise_bound))
+
+
+def _hypotheses(prep, tpl_pts, tpl_valid, tpl_fpfh, voxel, gen, draws, level: int = 4):
+    """(T, 5, 4, 4): 5 hypotheses per template, the 4 PCA sign alignments
+    and FPFH matching -> RANSAC -> TEASER. ``level`` < 4 stops early and
+    returns that step's output (a profile's prefix, ``apps/profile_search.py``):
+    1 the matches, 2 RANSAC's result, 3 TEASER's."""
+    dst_down, dst_feats = prep[2], prep[3]
+    corr_thresh, params = _teaser_constants(voxel)
+    midx, mok = match_features(tpl_fpfh, tpl_valid, dst_feats, dst_down.valid)
+    if level == 1:
+        return midx, mok
+    r = ransac_registration(tpl_pts, dst_down.points, midx, mok, corr_thresh,
+                            n_iters=RANSAC_ITERS, generator=gen, uniforms=draws.get("ransac"))
+    if level == 2:
+        return r
+    sol = teaser_solve(tpl_pts, dst_down.points[midx], r.corr_mask, params)
+    if level == 3:
+        return sol
+    return torch.cat([_pca_hypotheses(tpl_pts, tpl_valid, dst_down), sol.T[:, None]], dim=1)
+
+
+def _coarse(prep, hyps, tpl_pts, tpl_valid, voxel, use_half: bool, n_polish: int = 1):
+    """Every (template, hypothesis) chain in one batched ICP against the
+    voxel cloud, scored by ``alignment_score``: ``(flat_T0 (T * 5, 4, 4),
+    T_c (T * 5, 4, 4), top)`` with ``top`` the chains of each template's
+    ``n_polish`` coarse-best hypotheses (lowest index first on ties). The
+    relaxed regime exits at 1e-4 (the batch runs to its slowest chain and
+    the polish re-registers the winner anyway)."""
+    dst_down = prep[2]
+    n_tpl, n_hyp = hyps.shape[:2]
+    flat_T0 = hyps.reshape(n_tpl * n_hyp, 4, 4)
+    flat_pts = tpl_pts.repeat_interleave(n_hyp, dim=0)
+    flat_val = tpl_valid.repeat_interleave(n_hyp, dim=0)
+    tol = 1e-4 if use_half else 1e-6
+    coarse = icp_point_to_point_batched(flat_pts, flat_val, dst_down,
+                                        _f32(np.float32(3.0) * np.float32(voxel)), flat_T0,
+                                        max_iterations=30, relative_fitness=tol,
+                                        relative_rmse=tol)
+    T_c = coarse.T
+    s_c = alignment_score(PointCloud(transform_points(T_c, flat_pts), flat_val),
+                          PointCloud(flat_pts, flat_val), dst_down, voxel)
+    bh = torch.sort(s_c.reshape(n_tpl, n_hyp), dim=1, stable=True).indices[:, :n_polish]
+    top = (torch.arange(n_tpl, device=hyps.device)[:, None] * n_hyp + bh).reshape(-1)
+    return flat_T0, T_c, top
+
+
+def _final_polish(sc: _Scoring, T12, ladder_final, voxel, n_final=None, score: bool = True):
+    """The final polish stage, then the view scores (``score``): on every
+    chain, or on the ``n_final`` best after a re-score, the rest keeping
+    their early-polish pose and score. ``(T_f, scores)``; scores None when
+    not ``score`` and every chain is polished."""
+    chains = list(range(T12.shape[0]))
+    if n_final is None or n_final >= len(chains):
+        T_f = polish(sc, T12, chains, ladder_final, 2, voxel)
+        return T_f, (view_scores(sc, T_f) if score else None)
+    s12 = view_scores(sc, T12)
+    sel = torch.sort(s12, stable=True).indices[:n_final]
+    T3 = polish(sc, T12[sel], sel.tolist(), ladder_final, 2, voxel)
+    T_f, scores = T12.clone(), s12.clone()
+    T_f[sel] = T3
+    if score:
+        scores[sel] = view_scores(sc, T3)
+    return T_f, scores
+
+
 def _score_templates(prep, tpl_pts, tpl_valid, tpl_fpfh, mesh_v, mesh_f, intr: Intrinsics,
                      have_mask, voxel, gen, draws, win_hw="auto", score_res: int = 2,
                      n_polish: int = 1, n_final=None, strict: bool = False,
@@ -377,124 +551,20 @@ def _score_templates(prep, tpl_pts, tpl_valid, tpl_fpfh, mesh_v, mesh_f, intr: I
     views' instrument, ``"mesh"`` (``mesh_v``, ``mesh_f``: the exact raster,
     windowed) or ``"points"`` (``mesh_v``, ``mesh_f`` = points, valid: the
     point splat over the full frame, for point-cloud CADs)."""
-    dst_dense, dst_half, dst_down, dst_feats, obs_depth, mask_sil_r = prep
-    dev = tpl_pts.device
-    obs_sil_r = obs_depth > 0
-    # object windows: every predicted view and view score renders only a
-    # window around the hypothesis's projected object; the window score
-    # equals the full-frame score whenever the window covers the predicted
-    # silhouette (pixels outside enter through their full-frame totals)
-    intr_r, intr_q, win_r, win_q = _search_windows(intr, win_hw, score_res, render_kind)
-    n_obs_total = torch.clamp(obs_sil_r.sum(), min=1)
-    n_mask_total = mask_sil_r.sum()
-    view_draws = draws.get("views", {})
-
-    def render_full(T, ri):
-        if render_kind == "points":
-            return render_depth(mesh_v, mesh_f, T, ri, near=0.01, far=5.0)
-        return render_depth_mesh(mesh_v, mesh_f, T, ri, near=0.01, far=5.0)
-
-    def predicted_views(Ts, chains, ri, n, win, s):
-        # one render for the stage; each chain then samples its own window
-        # with its own draws, in chain order
-        if render_kind == "points":
-            deps, o = [render_full(T, ri) for T in Ts], None
-        else:
-            deps, o = render_windows(mesh_v, mesh_f, Ts, ri, win)
-        return [random_sample(backproject_depth(d, ri, depth_min=0.01, depth_max=5.0,
-                                                origin=None if o is None else o[i]),
-                              n, gen, view_draws.get((s, c)))
-                for i, (d, c) in enumerate(zip(deps, chains))]
-
-    def view_scores(Ts):
-        if render_kind == "points":
-            dep, o = torch.stack([render_full(T, intr_r) for T in Ts]), None
-        else:
-            dep, o = render_windows(mesh_v, mesh_f, Ts, intr_r, win_r)
-        if o is None:
-            obs_d, msk, out_mask, out_obs = obs_depth, mask_sil_r, 0, 0
-        else:
-            obs_d = window_gather_batched(obs_depth, o, *win_r)
-            msk = window_gather_batched(mask_sil_r, o, *win_r)
-            out_mask = n_mask_total - msk.sum((1, 2))
-            out_obs = n_obs_total - (obs_d > 0).sum((1, 2))
-        if have_mask:
-            return window_scores(dep, obs_d, msk, out_mask)
-        return window_scores(dep, obs_d, None, 0, out_obs, n_obs_total)
-
-    vox = np.float32(voxel)
-    noise_bound = vox * np.float32(1.5)
-    corr_thresh = _f32(noise_bound * np.float32(1.5))
-    params = TeaserParams(noise_bound=float(noise_bound))
+    sc = _scoring(prep, mesh_v, mesh_f, intr, have_mask, gen, draws, win_hw, score_res,
+                  render_kind)
     n_tpl = tpl_pts.shape[0]
     use_half = _use_half(intr, strict)
-
-    # 5 hypotheses per template: 4 PCA sign alignments + FPFH/RANSAC/TEASER
-    midx, mok = match_features(tpl_fpfh, tpl_valid, dst_feats, dst_down.valid)
-    r = ransac_registration(tpl_pts, dst_down.points, midx, mok, corr_thresh,
-                            n_iters=RANSAC_ITERS, generator=gen, uniforms=draws.get("ransac"))
-    sol = teaser_solve(tpl_pts, dst_down.points[midx], r.corr_mask, params)
-    hyps = torch.cat([_pca_hypotheses(tpl_pts, tpl_valid, dst_down), sol.T[:, None]], dim=1)
-    n_hyp = hyps.shape[1]
-    flat_T0 = hyps.reshape(n_tpl * n_hyp, 4, 4)
-    flat_pts = tpl_pts.repeat_interleave(n_hyp, dim=0)
-    flat_val = tpl_valid.repeat_interleave(n_hyp, dim=0)
-
-    # coarse: every (template, hypothesis) chain in one batched ICP; the
-    # relaxed regime exits at 1e-4 (the batch runs to its slowest chain and
-    # the polish re-registers the winner anyway)
-    tol = 1e-4 if use_half else 1e-6
-    coarse = icp_point_to_point_batched(flat_pts, flat_val, dst_down, _f32(np.float32(3.0) * vox), flat_T0,
-                                        max_iterations=30, relative_fitness=tol, relative_rmse=tol)
-    T_c = coarse.T
-    s_c = alignment_score(PointCloud(transform_points(T_c, flat_pts), flat_val),
-                          PointCloud(flat_pts, flat_val), dst_down, voxel)
-
-    # polish the coarse-best n_polish hypotheses of each template (lowest
-    # index first on ties)
-    s_t = s_c.reshape(n_tpl, n_hyp)
-    bh = torch.sort(s_t, dim=1, stable=True).indices[:, :n_polish]
-    top = (torch.arange(n_tpl, device=dev)[:, None] * n_hyp + bh).reshape(-1)
-
-    # render-ICP ladder: early stages at quarter resolution (half-size clouds
-    # in the relaxed regime), the final sub-cm stage at the scoring view
-    early_n = 1024 if use_half else 2048
-    early_dst = dst_half if use_half else dst_dense
-    early_tol = 1e-4 if use_half else 1e-6
-    final_tol = 1e-5 if use_half else 1e-6
-    ladder_early = ((1.0, 60, intr_q, early_n, early_dst, early_tol, win_q),
-                    (0.3, 60, intr_q, early_n, early_dst, early_tol, win_q))
-    ladder_final = ((0.1, 40, intr_r, 2048, dst_dense, final_tol, win_r),)
-
-    def polish(Ts, chains, stages, s0):
-        for s, (dist, iters, ri, n_view, dst_s, tol_s, win_s) in enumerate(stages, s0):
-            views = predicted_views(Ts, chains, ri, n_view, win_s, s)
-            d = icp_point_to_point_batched(
-                torch.stack([v.points for v in views]), torch.stack([v.valid for v in views]),
-                dst_s, _f32(np.float32(dist) * vox), max_iterations=iters,
-                relative_fitness=tol_s, relative_rmse=tol_s)
-            Ts = matmul_small(d.T, Ts)
-        return Ts
-
-    chains = list(range(top.shape[0]))
-    T12 = polish(T_c[top], chains, ladder_early, 0)
-    if n_final is None or n_final >= len(chains):
-        T_f = polish(T12, chains, ladder_final, 2)
-        scores = view_scores(T_f)
-    else:
-        # the final stage only on the n_final best chains after a re-score;
-        # the rest keep their early-polish pose and score
-        s12 = view_scores(T12)
-        sel = torch.sort(s12, stable=True).indices[:n_final]
-        T3 = polish(T12[sel], sel.tolist(), ladder_final, 2)
-        T_f, scores = T12.clone(), s12.clone()
-        T_f[sel] = T3
-        scores[sel] = view_scores(T3)
+    hyps = _hypotheses(prep, tpl_pts, tpl_valid, tpl_fpfh, voxel, gen, draws)
+    flat_T0, T_c, top = _coarse(prep, hyps, tpl_pts, tpl_valid, voxel, use_half, n_polish)
+    ladder_early, ladder_final = _polish_ladder(sc, prep, use_half)
+    T12 = polish(sc, T_c[top], list(range(top.shape[0])), ladder_early, 0, voxel)
+    T_f, scores = _final_polish(sc, T12, ladder_final, voxel, n_final)
     if n_polish == 1:
         return flat_T0[top], T_f, scores
     sc_t = scores.reshape(n_tpl, n_polish)
     pick = torch.argmin(sc_t, dim=1)
-    rows = torch.arange(n_tpl, device=dev)
+    rows = torch.arange(n_tpl, device=tpl_pts.device)
     H_pre = flat_T0[top].reshape(n_tpl, n_polish, 4, 4)[rows, pick]
     return H_pre, T_f.reshape(n_tpl, n_polish, 4, 4)[rows, pick], sc_t[rows, pick]
 

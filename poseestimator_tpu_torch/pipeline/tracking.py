@@ -200,10 +200,15 @@ def step_draws(intr: Intrinsics, win, target_pts: int, generator, device,
 def track_program(mesh_v: torch.Tensor, mesh_f: torch.Tensor, mask: torch.Tensor,
                   depth: torch.Tensor, T_m2c: torch.Tensor, intr: Intrinsics, icp_dist, win,
                   icp_pose_tol, target_pts: int, icp_variant: str, icp_kernel: str,
-                  draws: dict):
+                  draws: dict, stages: int = 6):
     """``track_step`` as a program of ``chains`` (it yields a ``Render``,
     then the ICP's requests) for a resolved window ``win`` and complete
-    ``draws``; returns the ``TrackResult``."""
+    ``draws``; returns the ``TrackResult``.
+
+    ``stages`` < 6 runs only the step's first stages and returns the last
+    one's output (a profile's prefix, ``apps/profile_stages.py``): 1 the
+    rendered depth, 2 the sampled rendered cloud, 3 the observed cloud, 4
+    its sample, 5 the outlier-free sample; 6 (the step) adds the ICP."""
     r = RENDER_DOWNSCALE
     intr_r = intr.scaled(r)
     if win is not None:
@@ -216,7 +221,11 @@ def track_program(mesh_v: torch.Tensor, mesh_f: torch.Tensor, mask: torch.Tensor
     else:
         dtpl = yield chains.Render(mesh_v, mesh_f, T_m2c, intr_r, 0.01, 5.0, None, None)
         tpl = backproject_depth(dtpl, intr_r, depth_min=0.01, depth_max=5.0)
+    if stages == 1:
+        return dtpl
     prev_down = random_sample(tpl, SAMPLE_PTS, draws=draws["tpl"])
+    if stages == 2:
+        return prev_down
 
     if win is not None:
         orig_f = orig_r.to(torch.int64) * r
@@ -225,8 +234,14 @@ def track_program(mesh_v: torch.Tensor, mesh_f: torch.Tensor, mask: torch.Tensor
         obs = backproject_depth(dwin, intr, mask=mwin, depth_min=1e-6, origin=orig_f)
     else:
         obs = backproject_depth(depth, intr, mask=mask, depth_min=1e-6)
+    if stages == 3:
+        return obs
     obs = random_sample(obs, SAMPLE_PTS, draws=draws["obs"])
+    if stages == 4:
+        return obs
     dst_down = remove_statistical_outlier(obs, 20, 1.0)
+    if stages == 5:
+        return dst_down
 
     if target_pts:
         prev_down = random_sample(prev_down, target_pts, draws=draws["tpl_target"])
@@ -369,14 +384,7 @@ class FusedFrame:
         the last pose. ``mask_union`` (H, W) bool is OR-ed into the detected
         mask (a benchmark keeps every detection op live this way while the
         track step sees the object's true silhouette)."""
-        lb, meta = letterbox(color_bgr, self.imgsz)
-        raw = self.model(lb.permute(2, 0, 1)[None])
-        boxes, cls, mc = decode_boxes(raw)
-        d = nms(boxes[0], cls[0], mc[0], conf_thres=conf, iou_thres=0.7,
-                pre_nms=1024, max_det=self.max_det)
-        # tracking consumes only the top detection's mask
-        mask = assemble_masks(raw["proto"][0], d.coeffs[:1], d.boxes[:1], d.valid[:1],
-                              meta, self.intr.height, self.intr.width)[0]
+        *_, (d, mask) = self.detect_stages(color_bgr, conf)
         if mask_union is not None:
             mask = mask | mask_union
         tr = track_step(self.mesh_v, self.mesh_f, mask, depth, T, self.intr, icp_dist,
@@ -386,6 +394,23 @@ class FusedFrame:
         ok = (d.count() > 0) & mask.any()
         return FusedResult(T=torch.where(ok, tr.T, T), ok=ok, fitness=tr.fitness,
                            rmse=tr.rmse, cov=tr.cov, n_iters=tr.n_iters)
+
+    def detect_stages(self, color_bgr: torch.Tensor, conf: float = 0.25):
+        """The frame's detection, one stage per item: the letterboxed image,
+        the network's raw outputs, the detections after DFL decode and NMS,
+        then ``(detections, mask)`` with the top detection's (H, W) mask.
+        A profile's prefix stops the generator after its stage."""
+        lb, meta = letterbox(color_bgr, self.imgsz)
+        yield lb
+        raw = self.model(lb.permute(2, 0, 1)[None])
+        yield raw
+        boxes, cls, mc = decode_boxes(raw)
+        d = nms(boxes[0], cls[0], mc[0], conf_thres=conf, iou_thres=0.7,
+                pre_nms=1024, max_det=self.max_det)
+        yield d
+        # tracking consumes only the top detection's mask
+        yield d, assemble_masks(raw["proto"][0], d.coeffs[:1], d.boxes[:1], d.valid[:1],
+                                meta, self.intr.height, self.intr.width)[0]
 
 
 def _upright(T) -> np.ndarray:

@@ -98,8 +98,13 @@ def raster_plain(coef: torch.Tensor, H: int, W: int, chunk: int = 8) -> torch.Te
 
 def raster_batched_plain(coef: torch.Tensor, H: int, W: int, chunk: int = 8) -> torch.Tensor:
     """``raster_plain`` of B problems, (B, F, 12) -> (B, H, W); elementwise
-    arithmetic and maxima only, so each problem rounds as it does alone."""
+    arithmetic and maxima only, so each problem rounds as it does alone.
+    On the CPU, faces that cover no pixel in any problem (the degenerate
+    ones, padding among them, whose first edge constant is -1e30) are
+    skipped: a maximum does not depend on them, so nothing changes."""
     dev = coef.device
+    if not coef.is_cuda:
+        coef = coef[:, ~(coef[..., 2] == -1e30).all(0)]
     X = torch.arange(W, dtype=torch.float32, device=dev).expand(H, W)
     Y = torch.arange(H, dtype=torch.float32, device=dev)[:, None].expand(H, W)
     izmax = torch.full((coef.shape[0], H, W), -1.0, dtype=torch.float32, device=dev)

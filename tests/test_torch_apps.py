@@ -43,7 +43,8 @@ from poseestimator_tpu_torch.utils import config, yaml_subset
 from poseestimator_tpu_torch.utils.plyio import write_ply
 from poseestimator_tpu_torch.utils.png import read_png
 
-from test_torch_offline import INTR, _two_threads, scene  # noqa: F401 (fixtures)
+from test_torch_offline import INTR, scene  # noqa: F401 (fixtures)
+from torch_threads import two_threads  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

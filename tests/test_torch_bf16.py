@@ -46,17 +46,10 @@ from poseestimator_tpu_torch.pipeline.detector import Detector
 from poseestimator_tpu_torch.pipeline.tracking import FusedFrame
 from poseestimator_tpu_torch.training import loss as ploss
 from poseestimator_tpu_torch.training import trainer as ptrainer
+from torch_threads import two_threads  # noqa: F401
 
 BF = jnp.bfloat16
 IMG = 128
-
-
-@pytest.fixture(autouse=True)
-def _two_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(min(n, 2))
-    yield
-    torch.set_num_threads(n)
 
 
 def _np(a) -> np.ndarray:

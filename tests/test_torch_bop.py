@@ -35,7 +35,8 @@ from poseestimator_tpu_torch.render.points import vsd_metric, vsd_multi_tau
 from poseestimator_tpu_torch.utils import bop
 from poseestimator_tpu_torch.utils.png import read_png, write_png
 
-from test_torch_offline import INTR, _two_threads, scene  # noqa: F401 (fixtures)
+from test_torch_offline import INTR, scene  # noqa: F401 (fixtures)
+from torch_threads import two_threads  # noqa: F401
 
 RTOL = 1e-5
 

@@ -39,6 +39,7 @@ from poseestimator_tpu_torch.render.mesh import TriangleMesh
 
 from helpers import l_shape_mesh
 from test_torch_yolo import _randomized
+from torch_threads import two_threads  # noqa: F401
 
 W, H = 128, 96
 J_INTR = g3.Intrinsics.from_fov(60.0, W, H)

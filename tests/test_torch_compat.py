@@ -17,6 +17,7 @@ from poseestimator_tpu_torch.camera.source import RealSenseCamera
 from poseestimator_tpu_torch.pipeline import detector, offline, pose_estimator
 from poseestimator_tpu_torch.templates import creation
 from poseestimator_tpu_torch.utils import bop, metrics_log
+from torch_threads import two_threads  # noqa: F401
 
 J = "pose_estimator"
 T = "poseestimator_tpu_torch.compat"

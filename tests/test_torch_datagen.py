@@ -31,16 +31,9 @@ from poseestimator_tpu_torch.apps import generate as gen_app
 from poseestimator_tpu_torch.geom3d.camera import Intrinsics
 from poseestimator_tpu_torch.training import data as pdata
 from poseestimator_tpu_torch.training import synth as psynth
+from torch_threads import two_threads  # noqa: F401
 
 FIELDS = ("images", "boxes", "classes", "masks", "inst_valid")
-
-
-@pytest.fixture(autouse=True)
-def _two_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -33,17 +33,10 @@ from poseestimator_tpu_torch import kernel_cases as kc
 from poseestimator_tpu_torch.apps import eval_tracking
 from poseestimator_tpu_torch.geom3d.camera import Intrinsics
 from poseestimator_tpu_torch.geom3d.cloud import from_points
+from torch_threads import two_threads  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SMOKE = ["--cpu", "--res", "128x96", "--frames", "6", "--modes", "0"]
-
-
-@pytest.fixture(autouse=True)
-def two_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(min(n, 2))
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module", autouse=True)

@@ -30,17 +30,11 @@ from poseestimator_tpu_torch.apps import (clique_sweep, eval_init, eval_tracking
                                           scaling_eval, testrun)
 from poseestimator_tpu_torch.geom3d.camera import Intrinsics
 from poseestimator_tpu_torch.utils.plyio import write_ply
+from torch_threads import two_threads  # noqa: F401
 
 
-@pytest.fixture(autouse=True)
-def two_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(min(n, 2))
-    yield
-    torch.set_num_threads(n)
-
-
-def test_scaling_eval_worlds_bit_equal():
+def test_scaling_eval_worlds_bit_equal(monkeypatch):
+    monkeypatch.setenv("OMP_NUM_THREADS", "2")  # each spawned rank: two threads
     args = scaling_eval.build_parser().parse_args(
         ["--cpu", "--worlds", "1,2", "--templates", "4", "--points", "128", "--repeat", "1"])
     rows = scaling_eval.run(args, quiet=True)

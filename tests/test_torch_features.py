@@ -38,6 +38,7 @@ from poseestimator_tpu_torch.registration.features import match_features
 from poseestimator_tpu_torch.render.points import render_depth
 
 from helpers import l_shape_mesh
+from torch_threads import two_threads  # noqa: F401
 
 
 def _t(a):

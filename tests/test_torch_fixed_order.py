@@ -13,16 +13,9 @@ import torch
 from poseestimator_tpu_torch.geom3d.cloud import PointCloud
 from poseestimator_tpu_torch.registration import kabsch as K
 from poseestimator_tpu_torch.registration.icp import icp_point_to_point_batched
+from torch_threads import two_threads  # noqa: F401
 
 SHAPES = [(80, 128), (16, 768), (16, 2048)]
-
-
-@pytest.fixture(autouse=True)
-def _two_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(min(n, 2))
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(params=[False, True], ids=["plain", "card order"])

@@ -15,6 +15,7 @@ from poseestimator_tpu.geom3d.pallas_nn import nn_pallas
 from poseestimator_tpu_torch import kernel_cases as kc
 from poseestimator_tpu_torch.geom3d import fused_nn as tnn
 from poseestimator_tpu_torch.geom3d.knn import nearest_neighbor
+from torch_threads import two_threads  # noqa: F401
 
 
 def _both(q, qv, d, dv):
@@ -85,7 +86,7 @@ def test_plain_chunking_is_exact(rng, monkeypatch):
     qv, dv = np.ones(257, bool), rng.uniform(size=129) < 0.7
     args = [torch.from_numpy(a) for a in (q, qv, d, dv)]
     whole = tnn.fused_nn_plain(*args)
-    monkeypatch.setattr(tnn, "_PLAIN_CHUNK_ELEMS", 129 * 10)
+    monkeypatch.setattr(tnn, "_PLAIN_CHUNK_ELEMS_CPU", 129 * 10)
     chunked = tnn.fused_nn_plain(*args)
     for a, b in zip(whole, chunked):
         assert torch.equal(a, b)

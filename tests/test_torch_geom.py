@@ -17,6 +17,7 @@ from poseestimator_tpu_torch.geom3d.camera import Intrinsics, backproject_depth
 from poseestimator_tpu_torch.geom3d.cloud import PointCloud
 from poseestimator_tpu_torch.geom3d.masked import masked_mean, masked_std
 from poseestimator_tpu_torch.pipeline import window as twin
+from torch_threads import two_threads  # noqa: F401
 
 J_INTR = g3.Intrinsics(fx=300.0, fy=310.0, cx=80.5, cy=59.5, width=160, height=120)
 T_INTR = Intrinsics(fx=300.0, fy=310.0, cx=80.5, cy=59.5, width=160, height=120)

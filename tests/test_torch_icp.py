@@ -15,6 +15,7 @@ from poseestimator_tpu_torch.registration.icp import icp_point_to_point
 from poseestimator_tpu_torch.registration.kabsch import kabsch
 
 from helpers import box_mesh
+from torch_threads import two_threads  # noqa: F401
 
 
 def _rot(axis, ang):

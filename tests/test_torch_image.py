@@ -29,6 +29,7 @@ from poseestimator_tpu_torch.utils.image import read_image, write_image
 from poseestimator_tpu_torch.utils.jpeg import decode_jpeg
 
 from test_torch_camera import IMGSZ, yolo_variables  # noqa: F401 (fixture)
+from torch_threads import two_threads  # noqa: F401
 
 
 def _photo(h, w, seed=0):

@@ -13,6 +13,7 @@ import pytest
 from poseestimator_tpu_torch.models.yolo.contours import contour_area
 from poseestimator_tpu_torch.utils import draw, imgproc, jpeg
 from poseestimator_tpu_torch.utils.image import IMREAD_COLOR, read_image, write_image
+from torch_threads import two_threads  # noqa: F401
 
 RESIZE_CASES = [  # (h, w, new_h, new_w)
     (96, 128, 48, 64), (480, 640, 240, 320), (480, 640, 320, 427), (480, 640, 640, 853),

@@ -3,9 +3,9 @@ module, ``parallel`` and the ``compat`` namespace among them) and
 ``chip_smoke.py`` loads neither ``jax`` nor ``poseestimator_tpu``,
 and works with ``jax``, flax, optax, orbax, OpenCV, PIL, PyYAML, imageio and
 pyrealsense2 made unimportable; every app builds its parser; the entry
-points, the apps, the evaluation harnesses, the detection scripts and the
-trainer and generator included, refuse to run without CUDA unless asked
-for the CPU. Checked in a
+points, the apps, the evaluation harnesses, the detection scripts, the
+per-stage profilers and the mosaic A/B, the trainer and generator included,
+refuse to run without CUDA unless asked for the CPU. Checked in a
 fresh interpreter, since this test process imports both packages."""
 import json
 import os
@@ -50,6 +50,7 @@ from poseestimator_tpu_torch.apps import eval_bop, main_image, main_realsense, m
 from poseestimator_tpu_torch.apps import generate as generate_app, train, val
 from poseestimator_tpu_torch.apps import (clique_sweep, eval_init, eval_tracking, mirror,
                                           predict, scaling_eval, testrun)
+from poseestimator_tpu_torch.apps import ab_mosaic, profile_search, profile_stages
 from poseestimator_tpu_torch.camera import record
 apps_raised = []
 for app, argv in ((main_image, ["--headless"]),
@@ -68,7 +69,10 @@ for app, argv in ((main_image, ["--headless"]),
                   (predict, ["--image", "x"]),
                   (testrun, ["--image", "x", "--label", "x", "--save", "x"]),
                   (mirror, ["--image-dir", "x", "--label-dir", "x", "--out-image-dir", "x",
-                            "--out-label-dir", "x"])):
+                            "--out-label-dir", "x"]),
+                  (profile_stages, ["--frames", "1"]),
+                  (profile_search, ["1", "--realistic"]),
+                  (ab_mosaic, ["--epochs", "1"])):
     app.build_parser().parse_args(argv) if hasattr(app, "build_parser") else None
     try:
         app.main(argv)
@@ -101,7 +105,8 @@ def test_port_imports_no_jax_and_needs_cuda_unless_cpu():
               "training.data", "training.trainer", "training.evaluate", "training.synth",
               "apps.generate", "apps.train", "apps.val", "apps.eval_tracking",
               "apps.eval_init", "apps.scaling_eval", "apps.clique_sweep", "apps.predict",
-              "apps.testrun", "apps.mirror", "parallel", "parallel.mesh",
+              "apps.testrun", "apps.mirror", "apps._scene", "apps.profile_stages",
+              "apps.profile_search", "apps.ab_mosaic", "parallel", "parallel.mesh",
               "parallel.bigcloud", "parallel.registration", "parallel.tracking",
               "parallel.serving", "compat", "compat.main_image", "compat.main_realsense",
               "compat.main_seibersdorf", "compat.EstimHelpers",
@@ -116,7 +121,7 @@ def test_port_imports_no_jax_and_needs_cuda_unless_cpu():
     assert res["cpu_ok"]
     if not torch.cuda.is_available():
         assert res["raised"] == [True] * 5
-        assert res["apps_raised"] == [True] * 15
+        assert res["apps_raised"] == [True] * 18
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):

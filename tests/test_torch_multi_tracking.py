@@ -35,6 +35,7 @@ from poseestimator_tpu_torch.render.mesh import pad_faces
 
 from test_torch_track_step import (J_INTR, T_INTR, W, H, WIN, _delta, _k1_numpy,
                                    jax_sampler_draws)
+from torch_threads import two_threads  # noqa: F401
 
 
 def _k1_callback_vmapped(query, query_valid, data, data_valid):
@@ -43,17 +44,6 @@ def _k1_callback_vmapped(query, query_valid, data, data_valid):
               jax.ShapeDtypeStruct((n,), jnp.bool_))
     return jax.pure_callback(_k1_numpy, shapes, query, query_valid, data, data_valid,
                              vmap_method="sequential")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _two_threads():
-    """Two intra-op threads for this module's heavy CPU steps: under a
-    parallel test run every worker's full thread pool contends for the same
-    cores, and these steps' large ops slow down many times over."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(min(n, 2))
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -49,6 +49,7 @@ from poseestimator_tpu_torch.registration.ransac import get_correspondences
 from poseestimator_tpu_torch.render.mesh import TriangleMesh, load_geometry
 from poseestimator_tpu_torch.templates.creation import render_templates
 from poseestimator_tpu_torch.utils.plyio import read_ply, write_ply
+from torch_threads import two_threads  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 INTR = Intrinsics.from_fov(60.0, 160, 120)
@@ -59,17 +60,6 @@ TEMPLATE_POINTS = 2000
 
 def _t(a):
     return torch.from_numpy(np.array(a))
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _two_threads():
-    """Two intra-op threads for this module's heavy CPU steps: under a
-    parallel test run every worker's full thread pool contends for the same
-    cores, and these steps' large ops slow down many times over."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(min(n, 2))
-    yield
-    torch.set_num_threads(n)
 
 
 _WHOLE_PROBE = "import ctypes, sys; ctypes.CDLL(sys.argv[1]).pe_max_clique"

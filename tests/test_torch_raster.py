@@ -20,20 +20,9 @@ from poseestimator_tpu_torch.render import raster as traster
 from poseestimator_tpu_torch.render.mesh import make_icosphere, pad_faces
 
 from helpers import box_mesh
+from torch_threads import two_threads  # noqa: F401
 
 J_INTR = g3.Intrinsics(fx=300.0, fy=300.0, cx=80.0, cy=60.0, width=160, height=120)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _two_threads():
-    """Two intra-op threads for this module's heavy CPU steps (the 5120-face
-    sphere's plain raster): under a parallel test run every worker's full
-    thread pool contends for the same cores, and these steps' large ops
-    slow down many times over."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(min(n, 2))
-    yield
-    torch.set_num_threads(n)
 T_INTR = Intrinsics(fx=300.0, fy=300.0, cx=80.0, cy=60.0, width=160, height=120)
 
 

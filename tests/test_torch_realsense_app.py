@@ -17,7 +17,8 @@ from poseestimator_tpu_torch.geom3d.camera import Intrinsics
 from poseestimator_tpu_torch.models.yolo.nms import Detections
 from poseestimator_tpu_torch.pipeline import multi_tracking, tracking
 
-from test_torch_offline import _two_threads, scene  # noqa: F401 (fixtures)
+from test_torch_offline import scene  # noqa: F401 (fixtures)
+from torch_threads import two_threads  # noqa: F401
 
 SMALL = Intrinsics.from_fov(60.0, 128, 96)
 FRAMES = 6  # 10 warm-up frames make the first result, then 5 tracked

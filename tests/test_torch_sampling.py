@@ -16,6 +16,7 @@ from poseestimator_tpu.geom3d.outliers import remove_statistical_outlier as j_so
 from poseestimator_tpu_torch.geom3d.cloud import PointCloud
 from poseestimator_tpu_torch.geom3d.outliers import remove_statistical_outlier
 from poseestimator_tpu_torch.geom3d.sampling import random_sample, uses_stratified
+from torch_threads import two_threads  # noqa: F401
 
 
 def jax_draws(key, capacity: int, n: int):

@@ -39,6 +39,7 @@ from poseestimator_tpu_torch.render.mesh import TriangleMesh
 from poseestimator_tpu_torch.utils.plyio import write_ply
 
 from helpers import l_shape_mesh
+from torch_threads import two_threads  # noqa: F401
 
 J_INTR = g3.Intrinsics.from_fov(60.0, 128, 96)
 T_INTR = Intrinsics.from_fov(60.0, 128, 96)

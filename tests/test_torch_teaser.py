@@ -28,6 +28,7 @@ from poseestimator_tpu_torch.registration.maxclique import max_clique_greedy
 from poseestimator_tpu_torch.registration.ransac import ransac_registration
 
 from helpers import box_mesh
+from torch_threads import two_threads  # noqa: F401
 
 
 def _t(a):

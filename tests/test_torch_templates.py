@@ -19,6 +19,7 @@ from poseestimator_tpu_torch.templates.db import load_templates
 from poseestimator_tpu_torch.utils.plyio import write_ply
 
 from helpers import l_shape_mesh
+from torch_threads import two_threads  # noqa: F401
 
 
 @pytest.fixture(scope="module")

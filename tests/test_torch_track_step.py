@@ -40,6 +40,7 @@ from poseestimator_tpu_torch.geom3d.camera import Intrinsics
 from poseestimator_tpu_torch.models.yolo.model import YOLO11Seg, init_random_
 from poseestimator_tpu_torch.pipeline.tracking import FusedFrame, track_step
 from poseestimator_tpu_torch.render.mesh import pad_faces
+from torch_threads import two_threads  # noqa: F401
 
 W, H = 160, 120
 WIN = (32, 64)  # explicit window at the half-resolution render view

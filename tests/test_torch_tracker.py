@@ -36,6 +36,7 @@ from poseestimator_tpu_torch.utils.plyio import write_ply
 
 from helpers import l_shape_mesh
 from test_torch_track_step import BOX_FACES, BOX_HALF, _delta, _k1_callback
+from torch_threads import two_threads  # noqa: F401
 
 _GL_TO_CV = np.diag([1.0, -1.0, -1.0, 1.0]).astype(np.float32)
 

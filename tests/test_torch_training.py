@@ -39,14 +39,7 @@ from poseestimator_tpu_torch.training import assigner as passign
 from poseestimator_tpu_torch.training import evaluate as peval
 from poseestimator_tpu_torch.training import loss as ploss
 from poseestimator_tpu_torch.training import trainer as ptrainer
-
-
-@pytest.fixture(autouse=True)
-def _two_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
+from torch_threads import two_threads  # noqa: F401
 
 
 @pytest.fixture(scope="module")

@@ -18,6 +18,7 @@ from poseestimator_tpu_torch.models.yolo.masks import assemble_masks
 from poseestimator_tpu_torch.models.yolo.model import YOLO11Seg
 from poseestimator_tpu_torch.models.yolo.nms import nms
 from poseestimator_tpu_torch.models.yolo.preprocess import LetterboxMeta, letterbox
+from torch_threads import two_threads  # noqa: F401
 
 IMG = 128
 
