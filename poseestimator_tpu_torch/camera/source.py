@@ -26,6 +26,7 @@ from ..geom3d.outliers import remove_statistical_outlier
 from ..geom3d.sampling import random_sample
 from ..render.points import render_shaded
 from ..render.raster import render_depth_mesh, shade_depth_image
+from ..utils.profiling import traced
 from .filters import hole_filling_filter, spatial_filter, temporal_filter
 
 PCD_CAPACITY = 16384  # per-frame cloud budget of get_pcd_from_rgbd
@@ -60,6 +61,7 @@ class _BaseCamera:
     def rs_get_intrinsics(self):
         return self.intrinsics, self.intrinsics.K
 
+    @traced("camera.cloud")
     def get_pcd_from_rgbd(self, mask) -> PointCloud:
         if self.depth is None:
             raise RuntimeError("call get_rgbd() before get_pcd_from_rgbd()")

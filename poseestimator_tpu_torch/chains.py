@@ -29,6 +29,7 @@ import torch
 from .geom3d.camera import Intrinsics
 from .geom3d.knn import nearest_neighbor, nearest_neighbor_batched
 from .render.raster import render_depth_mesh, render_depth_mesh_batched
+from .utils.profiling import host_read, span, strands
 
 
 @dataclass
@@ -99,11 +100,14 @@ class Continue:
     flag: torch.Tensor
 
     def serve(self):
-        return bool(self.flag)
+        with host_read():
+            return bool(self.flag)
 
     @staticmethod
     def serve_batch(reqs: list["Continue"]) -> list:
-        return torch.stack([r.flag for r in reqs]).tolist()  # one host read
+        flags = torch.stack([r.flag for r in reqs])
+        with host_read():  # one host read
+            return flags.tolist()
 
 
 def run(program):
@@ -118,24 +122,33 @@ def run(program):
 
 def run_batched(programs: list) -> list:
     """Run B programs in lockstep: each round serves the pending requests of
-    one kind with one batched call. Returns their results in order."""
-    results = [None] * len(programs)
-    pending = {}
-    for i, p in enumerate(programs):
-        try:
-            pending[i] = next(p)
-        except StopIteration as stop:
-            results[i] = stop.value
-    while pending:
-        kinds: dict = {}
-        for i, req in pending.items():
-            kinds.setdefault(type(req), []).append(i)
-        for kind, ids in kinds.items():
-            answers = kind.serve_batch([pending[i] for i in ids])
-            for i, a in zip(ids, answers):
-                try:
-                    pending[i] = programs[i].send(a)
-                except StopIteration as stop:
-                    results[i] = stop.value
-                    del pending[i]
-    return results
+    one kind with one batched call. Returns their results in order.
+
+    Traced, the run is a ``batch`` span; each resumption of a program, up
+    to its next request, is charged to that program's own innermost span
+    (``profiling.Strand``), and a batched call, which serves several
+    programs at once, to the ``batch`` span."""
+    with span("batch", len(programs)):
+        ctx = strands(len(programs))
+        results = [None] * len(programs)
+        pending = {}
+        for i, p in enumerate(programs):
+            try:
+                with ctx[i]:
+                    pending[i] = next(p)
+            except StopIteration as stop:
+                results[i] = stop.value
+        while pending:
+            kinds: dict = {}
+            for i, req in pending.items():
+                kinds.setdefault(type(req), []).append(i)
+            for kind, ids in kinds.items():
+                answers = kind.serve_batch([pending[i] for i in ids])
+                for i, a in zip(ids, answers):
+                    try:
+                        with ctx[i]:
+                            pending[i] = programs[i].send(a)
+                    except StopIteration as stop:
+                        results[i] = stop.value
+                        del pending[i]
+        return results

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.profiling import span
 from .fused_nn import fused_nn, fused_nn_batched
 
 BIG = 3.0e38
@@ -78,10 +79,12 @@ def radius_knn(query, query_valid, data, data_valid, radius: float, max_nn: int,
 
 def nearest_neighbor(query, query_valid, data, data_valid):
     """Single nearest valid data point per query: ``(dist, idx, found)``."""
-    return fused_nn(query, query_valid, data, data_valid)
+    with span("k1", 1, query.shape[0], data.shape[0]):
+        return fused_nn(query, query_valid, data, data_valid)
 
 
 def nearest_neighbor_batched(query, query_valid, data, data_valid):
     """``nearest_neighbor`` of B problems: (B, N, 3) queries against their
     own (B, M, 3) data -> ``(dist, idx, found)``, each (B, N)."""
-    return fused_nn_batched(query, query_valid, data, data_valid)
+    with span("k1", query.shape[0], query.shape[1], data.shape[1]):
+        return fused_nn_batched(query, query_valid, data, data_valid)

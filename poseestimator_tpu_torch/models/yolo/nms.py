@@ -15,6 +15,8 @@ from dataclasses import dataclass
 
 import torch
 
+from ...utils.profiling import host_read
+
 _CHECK_EVERY = 4
 
 
@@ -80,8 +82,10 @@ def nms(boxes, cls_prob, coeffs, conf_thres: float = 0.25, iou_thres: float = 0.
         prev = keep
         for _ in range(_CHECK_EVERY):
             keep = cand_ok & ~(sup & keep[:, None]).any(dim=0)
-        if not bool((keep != prev).any()):
-            break
+        changed = (keep != prev).any()
+        with host_read():
+            if not bool(changed):
+                break
 
     surv = torch.where(keep, cand_scores, torch.full_like(cand_scores, -1.0))
     top_scores, sel = _top(surv, max_det)

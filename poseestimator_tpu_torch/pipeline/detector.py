@@ -25,6 +25,7 @@ from ..models.yolo.nms import Detections, nms
 from ..models.yolo.preprocess import boxes_to_original, letterbox
 from ..models.yolo.weights import load_checkpoint
 from ..utils.image import IMREAD_COLOR, read_image
+from ..utils.profiling import span, traced
 
 
 class Detector:
@@ -70,19 +71,26 @@ class Detector:
         return torch.as_tensor(np.asarray(img), device=self.device)
 
     @torch.no_grad()
+    @traced("detect")
     def __call__(self, img, conf: float = 0.25, iou: float = 0.7, with_masks: bool = True):
         """``(Detections, masks (D, H, W) bool or None, boxes_orig (D, 4))``
         for one (H, W, 3) image; ``with_masks=False`` skips the masks."""
         img = self._image(img)
         h, w = img.shape[:2]
-        lb, meta = letterbox(img, self.imgsz)
-        raw = self.model(lb.permute(2, 0, 1)[None])
-        boxes, cls, mc = decode_boxes(raw)
-        det = nms(boxes[0], cls[0], mc[0], conf_thres=conf, iou_thres=iou,
-                  pre_nms=self.pre_nms, max_det=self.max_det)
+        with span("detect.letterbox"):
+            lb, meta = letterbox(img, self.imgsz)
+        with span("detect.forward"):
+            raw = self.model(lb.permute(2, 0, 1)[None])
+        with span("detect.decode"):
+            boxes, cls, mc = decode_boxes(raw)
+        with span("detect.nms"):
+            det = nms(boxes[0], cls[0], mc[0], conf_thres=conf, iou_thres=iou,
+                      pre_nms=self.pre_nms, max_det=self.max_det)
         masks = None
         if with_masks:
-            masks = assemble_masks(raw["proto"][0], det.coeffs, det.boxes, det.valid, meta, h, w)
+            with span("detect.masks"):
+                masks = assemble_masks(raw["proto"][0], det.coeffs, det.boxes, det.valid,
+                                       meta, h, w)
         return det, masks, boxes_to_original(det.boxes, meta)
 
     @torch.no_grad()

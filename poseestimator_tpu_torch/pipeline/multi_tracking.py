@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..utils.profiling import host_read, span, traced
 from .tracking import PoseFilter, _upright, track_step_batched
 from .window import merge_windows, window_for_object
 
@@ -205,9 +206,12 @@ class MultiTracker:
             self.camera.depth, Ts.to(self.device), self.estimator.intr, dists.to(self.device),
             win_hw=win, target_pts=self.target_pts, icp_pose_tol=BATCH_POSE_TOL,
             generator=self._gen)
-        T_new = res.T.cpu().numpy()
-        fits = res.fitness.cpu().numpy()
-        covs = res.cov.cpu().numpy()
+        with host_read():
+            T_new = res.T.cpu().numpy()
+        with host_read():
+            fits = res.fitness.cpu().numpy()
+        with host_read():
+            covs = res.cov.cpu().numpy()
         for i, (tr, _) in enumerate(matched):
             tr.T_m2c = T_new[i]
             tr.T_out = np.asarray(tr.filter(T_new[i])) if tr.filter is not None else T_new[i]
@@ -238,29 +242,38 @@ class MultiTracker:
         return True
 
     @torch.no_grad()
+    @traced("multi.step")
     def step(self) -> Optional[MultiFrameResult]:
         """One frame: detect, associate, update the matched tracks in one
-        batched step, retire, spawn at most one. None when the stream ends."""
+        batched step, retire, spawn at most one. None when the stream ends.
+        Its ``timings`` (s, on ``time.perf_counter``): ``detect``,
+        ``associate``, ``track_batch`` and, on a spawn, ``init``."""
         color = self.camera.get_rgbd()
         if color is None:
             return None
         timings = {}
 
-        t0 = time.time()
+        t0 = time.perf_counter()
         det, masks, boxes_orig = self.detector(color, conf=self.conf)
-        n_det = int(det.count())
-        timings["detect"] = time.time() - t0
-        det_boxes = np.asarray(torch.as_tensor(boxes_orig[:n_det]).cpu())
-        det_classes = np.asarray(torch.as_tensor(det.classes[:n_det]).cpu())
+        n_det = det.count()
+        with host_read():
+            n_det = int(n_det)
+        timings["detect"] = time.perf_counter() - t0
+        with host_read():
+            det_boxes = np.asarray(torch.as_tensor(boxes_orig[:n_det]).cpu())
+        with host_read():
+            det_classes = np.asarray(torch.as_tensor(det.classes[:n_det]).cpu())
 
-        t0 = time.time()
-        matched, assigned = self._associate(det_boxes, det_classes, n_det)
-        timings["associate"] = time.time() - t0
+        t0 = time.perf_counter()
+        with span("multi.associate"):
+            matched, assigned = self._associate(det_boxes, det_classes, n_det)
+        timings["associate"] = time.perf_counter() - t0
 
         if matched:
-            t0 = time.time()
-            self._update(matched, masks)
-            timings["track_batch"] = time.time() - t0
+            t0 = time.perf_counter()
+            with span("multi.update", len(matched)):
+                self._update(matched, masks)
+            timings["track_batch"] = time.perf_counter() - t0
 
         self.tracks = [t for t in self.tracks if t.misses <= self.max_misses]
 
@@ -268,9 +281,11 @@ class MultiTracker:
             for j in range(n_det):
                 if j in assigned:
                     continue
-                t0 = time.time()
-                if self._spawn(j, masks, det_classes):
-                    timings["init"] = time.time() - t0
+                t0 = time.perf_counter()
+                with span("multi.spawn"):
+                    spawned = self._spawn(j, masks, det_classes)
+                if spawned:
+                    timings["init"] = time.perf_counter() - t0
                     break
 
         res = MultiFrameResult(color=color, tracks=list(self.tracks), n_detections=n_det,

@@ -62,6 +62,7 @@ from ..render.mesh import TriangleMesh, decimate_to_faces, pad_faces
 from ..render.points import render_depth
 from ..render.raster import render_depth_mesh, render_depth_mesh_batched
 from ..templates.db import load_templates
+from ..utils.profiling import host_read, span, traced
 from .window import window_dims, window_for_object, window_gather_batched, window_origin
 
 SEARCH_CAP = 1024  # per-cloud point budget after the voxel downsample
@@ -207,6 +208,7 @@ class PoseEstimator:
         return H, src_down
 
     @torch.no_grad()
+    @traced("search")
     def find_best_template_candidates(self, dst_cloud: PointCloud, keep_pre_icp: bool = False,
                                       mask=None, draws: Optional[dict] = None):
         """Search every template: ``(T, src_down, candidates)`` with the
@@ -222,8 +224,10 @@ class PoseEstimator:
         win = self.search_window
         if win == "auto":
             # the window bucket sized to this observation's distance
-            pts = dst_cloud.points.cpu().numpy()
-            val = dst_cloud.valid.cpu().numpy()
+            with host_read():
+                pts = dst_cloud.points.cpu().numpy()
+            with host_read():
+                val = dst_cloud.valid.cpu().numpy()
             z = float(np.median(pts[val, 2])) if val.any() else 1.0
             win = window_for_object(self.intr.scaled(self.search_score_res),
                                     float(np.linalg.norm(self.mesh.extent)), z)
@@ -237,8 +241,11 @@ class PoseEstimator:
                 n_polish=self.search_polish, dst_cap=self._search_cap, draws=draws)
             # drop the pad copies; the winner is picked over the real ones
             scores, Ts_all = scores[:n_real], Hr_all[:n_real]
-            i = int(torch.argmin(scores))
-            H = (Hp_all[i] if keep_pre_icp else Ts_all[i]).cpu().numpy()
+            best = torch.argmin(scores)
+            with host_read():
+                i = int(best)
+            with host_read():
+                H = (Hp_all[i] if keep_pre_icp else Ts_all[i]).cpu().numpy()
         else:
             H_pre, H_ref, best, scores, Ts_all = search_templates(
                 dst_pts, dst_valid, self._tpl_points, self._tpl_valid, self._tpl_fpfh,
@@ -246,10 +253,14 @@ class PoseEstimator:
                 self.generator, win_hw=win, score_res=self.search_score_res,
                 n_polish=self.search_polish, n_final=self.search_final_topk,
                 dst_cap=self._search_cap, draws=draws)
-            H = (H_pre if keep_pre_icp else H_ref).cpu().numpy()
-            i = int(best)
-        scores = scores.cpu().numpy()
-        Ts_all = Ts_all.cpu().numpy()
+            with host_read():
+                H = (H_pre if keep_pre_icp else H_ref).cpu().numpy()
+            with host_read():
+                i = int(best)
+        with host_read():
+            scores = scores.cpu().numpy()
+        with host_read():
+            Ts_all = Ts_all.cpu().numpy()
         src_down = PointCloud(points=self._tpl_points[i], valid=self._tpl_valid[i])
         candidates = [(float(scores[j]), Ts_all[j], int(j)) for j in np.argsort(scores, kind="stable")]
         return H, src_down, candidates
@@ -299,6 +310,7 @@ def _pca_hypotheses(src_pts, src_valid, dst: PointCloud) -> torch.Tensor:
     return T
 
 
+@traced("search.prep")
 def _prep_dst(dst_pts, dst_valid, intr: Intrinsics, mask_sil, have_mask, voxel, gen, draws,
               score_res: int = 2, dst_cap: int = SEARCH_CAP):
     """The observation side, once per search: dense (4096) and half (2048)
@@ -426,6 +438,7 @@ def predicted_views(sc: _Scoring, Ts, chains, ri, n, win, s):
             for i, (d, c) in enumerate(zip(deps, chains))]
 
 
+@traced("search.scores")
 def view_scores(sc: _Scoring, Ts):
     """Render-and-compare scores (B,) of poses ``Ts`` at the scoring view."""
     if sc.render_kind == "points":
@@ -449,12 +462,13 @@ def polish(sc: _Scoring, Ts, chains, stages, s0, voxel):
     the ladder rungs ``stages`` (numbered from ``s0``)."""
     vox = np.float32(voxel)
     for s, (dist, iters, ri, n_view, dst_s, tol_s, win_s) in enumerate(stages, s0):
-        views = predicted_views(sc, Ts, chains, ri, n_view, win_s, s)
-        d = icp_point_to_point_batched(
-            torch.stack([v.points for v in views]), torch.stack([v.valid for v in views]),
-            dst_s, _f32(np.float32(dist) * vox), max_iterations=iters,
-            relative_fitness=tol_s, relative_rmse=tol_s)
-        Ts = matmul_small(d.T, Ts)
+        with span("search.polish", s, len(chains)):  # one span a rung: 0, 1 early, 2 final
+            views = predicted_views(sc, Ts, chains, ri, n_view, win_s, s)
+            d = icp_point_to_point_batched(
+                torch.stack([v.points for v in views]), torch.stack([v.valid for v in views]),
+                dst_s, _f32(np.float32(dist) * vox), max_iterations=iters,
+                relative_fitness=tol_s, relative_rmse=tol_s)
+            Ts = matmul_small(d.T, Ts)
     return Ts
 
 
@@ -478,6 +492,7 @@ def _teaser_constants(voxel):
     return _f32(noise_bound * np.float32(1.5)), TeaserParams(noise_bound=float(noise_bound))
 
 
+@traced("search.hypotheses")
 def _hypotheses(prep, tpl_pts, tpl_valid, tpl_fpfh, voxel, gen, draws, level: int = 4):
     """(T, 5, 4, 4): 5 hypotheses per template, the 4 PCA sign alignments
     and FPFH matching -> RANSAC -> TEASER. ``level`` < 4 stops early and
@@ -498,6 +513,7 @@ def _hypotheses(prep, tpl_pts, tpl_valid, tpl_fpfh, voxel, gen, draws, level: in
     return torch.cat([_pca_hypotheses(tpl_pts, tpl_valid, dst_down), sol.T[:, None]], dim=1)
 
 
+@traced("search.coarse")
 def _coarse(prep, hyps, tpl_pts, tpl_valid, voxel, use_half: bool, n_polish: int = 1):
     """Every (template, hypothesis) chain in one batched ICP against the
     voxel cloud, scored by ``alignment_score``: ``(flat_T0 (T * 5, 4, 4),
@@ -534,7 +550,9 @@ def _final_polish(sc: _Scoring, T12, ladder_final, voxel, n_final=None, score: b
         return T_f, (view_scores(sc, T_f) if score else None)
     s12 = view_scores(sc, T12)
     sel = torch.sort(s12, stable=True).indices[:n_final]
-    T3 = polish(sc, T12[sel], sel.tolist(), ladder_final, 2, voxel)
+    with host_read():
+        picked = sel.tolist()
+    T3 = polish(sc, T12[sel], picked, ladder_final, 2, voxel)
     T_f, scores = T12.clone(), s12.clone()
     T_f[sel] = T3
     if score:
@@ -570,6 +588,7 @@ def _score_templates(prep, tpl_pts, tpl_valid, tpl_fpfh, mesh_v, mesh_f, intr: I
 
 
 @torch.no_grad()
+@traced("search", only_root=True)
 def search_templates(dst_pts, dst_valid, tpl_pts, tpl_valid, tpl_fpfh, mesh_v, mesh_f,
                      intr: Intrinsics, mask_sil, have_mask: bool, voxel, gen: torch.Generator,
                      win_hw="auto", score_res: int = 2, n_polish: int = 1, n_final=None,

@@ -49,6 +49,7 @@ from ..models.yolo.model import YOLO11Seg
 from ..models.yolo.nms import nms
 from ..models.yolo.preprocess import letterbox
 from ..registration.icp import icp_point_to_plane, icp_point_to_point_program
+from ..utils.profiling import host_read, span, traced
 from .window import window_dims, window_for_object, window_gather, window_origin
 
 SAMPLE_PTS = 4096  # points per cloud after sampling
@@ -197,6 +198,7 @@ def step_draws(intr: Intrinsics, win, target_pts: int, generator, device,
     return out
 
 
+@traced("track")
 def track_program(mesh_v: torch.Tensor, mesh_f: torch.Tensor, mask: torch.Tensor,
                   depth: torch.Tensor, T_m2c: torch.Tensor, intr: Intrinsics, icp_dist, win,
                   icp_pose_tol, target_pts: int, icp_variant: str, icp_kernel: str,
@@ -213,51 +215,62 @@ def track_program(mesh_v: torch.Tensor, mesh_f: torch.Tensor, mask: torch.Tensor
     intr_r = intr.scaled(r)
     if win is not None:
         wh, ww = win
-        orig_r = window_origin(mesh_v, T_m2c, intr_r, wh, ww)
-        dtpl = yield chains.Render(mesh_v, mesh_f, T_m2c, intr_r, 0.01, 5.0,
-                                   orig_r.to(torch.float32), win)
-        tpl = backproject_depth(dtpl, intr_r, depth_min=0.01, depth_max=5.0,
-                                origin=orig_r)
+        with span("track.render"):
+            orig_r = window_origin(mesh_v, T_m2c, intr_r, wh, ww)
+            dtpl = yield chains.Render(mesh_v, mesh_f, T_m2c, intr_r, 0.01, 5.0,
+                                       orig_r.to(torch.float32), win)
+        with span("track.backproject"):
+            tpl = backproject_depth(dtpl, intr_r, depth_min=0.01, depth_max=5.0,
+                                    origin=orig_r)
     else:
-        dtpl = yield chains.Render(mesh_v, mesh_f, T_m2c, intr_r, 0.01, 5.0, None, None)
-        tpl = backproject_depth(dtpl, intr_r, depth_min=0.01, depth_max=5.0)
+        with span("track.render"):
+            dtpl = yield chains.Render(mesh_v, mesh_f, T_m2c, intr_r, 0.01, 5.0, None, None)
+        with span("track.backproject"):
+            tpl = backproject_depth(dtpl, intr_r, depth_min=0.01, depth_max=5.0)
     if stages == 1:
         return dtpl
-    prev_down = random_sample(tpl, SAMPLE_PTS, draws=draws["tpl"])
+    with span("track.sample"):
+        prev_down = random_sample(tpl, SAMPLE_PTS, draws=draws["tpl"])
     if stages == 2:
         return prev_down
 
-    if win is not None:
-        orig_f = orig_r.to(torch.int64) * r
-        dwin = window_gather(depth, orig_f[1], orig_f[0], wh * r, ww * r)
-        mwin = window_gather(mask, orig_f[1], orig_f[0], wh * r, ww * r)
-        obs = backproject_depth(dwin, intr, mask=mwin, depth_min=1e-6, origin=orig_f)
-    else:
-        obs = backproject_depth(depth, intr, mask=mask, depth_min=1e-6)
+    with span("track.backproject"):
+        if win is not None:
+            orig_f = orig_r.to(torch.int64) * r
+            dwin = window_gather(depth, orig_f[1], orig_f[0], wh * r, ww * r)
+            mwin = window_gather(mask, orig_f[1], orig_f[0], wh * r, ww * r)
+            obs = backproject_depth(dwin, intr, mask=mwin, depth_min=1e-6, origin=orig_f)
+        else:
+            obs = backproject_depth(depth, intr, mask=mask, depth_min=1e-6)
     if stages == 3:
         return obs
-    obs = random_sample(obs, SAMPLE_PTS, draws=draws["obs"])
+    with span("track.sample"):
+        obs = random_sample(obs, SAMPLE_PTS, draws=draws["obs"])
     if stages == 4:
         return obs
-    dst_down = remove_statistical_outlier(obs, 20, 1.0)
+    with span("track.outliers"):
+        dst_down = remove_statistical_outlier(obs, 20, 1.0)
     if stages == 5:
         return dst_down
 
     if target_pts:
-        prev_down = random_sample(prev_down, target_pts, draws=draws["tpl_target"])
-        dst_down = random_sample(dst_down, target_pts, draws=draws["obs_target"])
+        with span("track.sample"):
+            prev_down = random_sample(prev_down, target_pts, draws=draws["tpl_target"])
+            dst_down = random_sample(dst_down, target_pts, draws=draws["obs_target"])
 
-    if icp_variant == "p2l":
-        dst_down = estimate_normals(dst_down, radius=0.025, max_nn=16,
-                                    orient_towards=(0.0, 0.0, 0.0))
-        icp = icp_point_to_plane(prev_down, dst_down, max_corr_dist=icp_dist,
-                                 max_iterations=30, robust=icp_kernel, with_cov=True)
-    else:
-        # product resolutions (windowed) run Besl-McKay accelerated ICP;
-        # tiny full-frame cameras keep the exact Open3D-parity sequence
-        icp = yield from icp_point_to_point_program(
-            prev_down, dst_down, max_corr_dist=icp_dist, max_iterations=30, robust=icp_kernel,
-            with_cov=True, accel=win is not None, accel_pose_tol=icp_pose_tol)
+    with span("track.icp"):
+        if icp_variant == "p2l":
+            dst_down = estimate_normals(dst_down, radius=0.025, max_nn=16,
+                                        orient_towards=(0.0, 0.0, 0.0))
+            icp = icp_point_to_plane(prev_down, dst_down, max_corr_dist=icp_dist,
+                                     max_iterations=30, robust=icp_kernel, with_cov=True)
+        else:
+            # product resolutions (windowed) run Besl-McKay accelerated ICP;
+            # tiny full-frame cameras keep the exact Open3D-parity sequence
+            icp = yield from icp_point_to_point_program(
+                prev_down, dst_down, max_corr_dist=icp_dist, max_iterations=30,
+                robust=icp_kernel, with_cov=True, accel=win is not None,
+                accel_pose_tol=icp_pose_tol)
     return TrackResult(T=icp.T @ T_m2c, fitness=icp.fitness, rmse=icp.inlier_rmse,
                        cov=icp.cov, n_iters=icp.n_iters)
 
@@ -375,6 +388,7 @@ class FusedFrame:
         self.icp_kernel = icp_kernel
 
     @torch.no_grad()
+    @traced("frame")
     def __call__(self, color_bgr: torch.Tensor, depth: torch.Tensor, T: torch.Tensor,
                  conf: float = 0.25, icp_dist: float = 0.01,
                  mask_union: Optional[torch.Tensor] = None,
@@ -384,7 +398,8 @@ class FusedFrame:
         the last pose. ``mask_union`` (H, W) bool is OR-ed into the detected
         mask (a benchmark keeps every detection op live this way while the
         track step sees the object's true silhouette)."""
-        *_, (d, mask) = self.detect_stages(color_bgr, conf)
+        with span("detect"):
+            *_, (d, mask) = self.detect_stages(color_bgr, conf)
         if mask_union is not None:
             mask = mask | mask_union
         tr = track_step(self.mesh_v, self.mesh_f, mask, depth, T, self.intr, icp_dist,
@@ -400,17 +415,30 @@ class FusedFrame:
         the network's raw outputs, the detections after DFL decode and NMS,
         then ``(detections, mask)`` with the top detection's (H, W) mask.
         A profile's prefix stops the generator after its stage."""
-        lb, meta = letterbox(color_bgr, self.imgsz)
+        with span("detect.letterbox"):
+            lb, meta = letterbox(color_bgr, self.imgsz)
         yield lb
-        raw = self.model(lb.permute(2, 0, 1)[None])
+        with span("detect.forward"):
+            raw = self.model(lb.permute(2, 0, 1)[None])
         yield raw
-        boxes, cls, mc = decode_boxes(raw)
-        d = nms(boxes[0], cls[0], mc[0], conf_thres=conf, iou_thres=0.7,
-                pre_nms=1024, max_det=self.max_det)
+        with span("detect.decode"):
+            boxes, cls, mc = decode_boxes(raw)
+        with span("detect.nms"):
+            d = nms(boxes[0], cls[0], mc[0], conf_thres=conf, iou_thres=0.7,
+                    pre_nms=1024, max_det=self.max_det)
         yield d
         # tracking consumes only the top detection's mask
-        yield d, assemble_masks(raw["proto"][0], d.coeffs[:1], d.boxes[:1], d.valid[:1],
-                                meta, self.intr.height, self.intr.width)[0]
+        with span("detect.masks"):
+            m = assemble_masks(raw["proto"][0], d.coeffs[:1], d.boxes[:1], d.valid[:1],
+                               meta, self.intr.height, self.intr.width)[0]
+        yield d, m
+
+
+def _seen(mask: torch.Tensor) -> bool:
+    """Whether a mask on the device has a pixel set: one host read."""
+    hit = mask.any()
+    with host_read():
+        return bool(hit)
 
 
 def _upright(T) -> np.ndarray:
@@ -602,7 +630,10 @@ class Tracker:
     def _detect(self, color):
         """One detection pass: the top detection's (H, W) bool mask, or None."""
         det, masks, _ = self.detector(color, conf=self.conf)
-        if int(det.count()) == 0:
+        n = det.count()
+        with host_read():
+            n = int(n)
+        if n == 0:
             return None
         return masks[0]
 
@@ -616,7 +647,7 @@ class Tracker:
             if color is None:
                 return None
             m = self._detect(color)
-            if m is None or not bool(m.any()):
+            if m is None or not _seen(m):
                 consecutive = 0
                 continue
             mask = m
@@ -626,7 +657,7 @@ class Tracker:
         if mask is None or consecutive < self.warmup_frames:
             return None
 
-        t0 = time.time()
+        t0 = time.perf_counter()
         dst_cloud = self.camera.get_pcd_from_rgbd(mask)
         H, _, candidates = self.estimator.find_best_template_candidates(dst_cloud, mask=mask)
         H = _upright(H)
@@ -646,7 +677,7 @@ class Tracker:
         self.initialized = True
         self.errorcounter = 0
         return FrameResult(color=color, T_m2c=H, state="init",
-                           timings={"global_registration": time.time() - t0},
+                           timings={"global_registration": time.perf_counter() - t0},
                            detected=True, init_margin=init_margin)
 
     def _distinct_basins(self, candidates) -> list:
@@ -698,7 +729,7 @@ class Tracker:
             if color is None:
                 break
             m = self._detect(color)
-            if m is None or not bool(m.any()):
+            if m is None or not _seen(m):
                 continue
             Ts = track_step_batched(est._mesh_v, est._mesh_f, m, self.camera.depth, Ts,
                                     est.intr, INIT_RADIUS, win_hw=self._win_hw,
@@ -708,7 +739,9 @@ class Tracker:
         if last is None:
             return H, 0.0
         scores = score_pose_candidates(est._mesh_v, est._mesh_f, Ts, last[0],
-                                       last[1], est.intr, win_hw=self._win_hw).cpu().numpy()
+                                       last[1], est.intr, win_hw=self._win_hw)
+        with host_read():
+            scores = scores.cpu().numpy()
         order = np.argsort(scores)
         w = int(order[0])
         margin = float(scores[order[1]] - scores[order[0]])
@@ -716,7 +749,9 @@ class Tracker:
         # stable reorder: the winner's template candidate leads the fallback
         # ladder, everything else keeps its search ranking
         self._candidates = sorted(self._candidates, key=lambda c: 0 if c[2] == win_idx else 1)
-        return Ts[w].cpu().numpy(), margin
+        with host_read():
+            T_w = Ts[w].cpu().numpy()
+        return T_w, margin
 
     def _lost(self, color, timings) -> FrameResult:
         """A detection miss: count it, and drop to INIT past ``max_misses``."""
@@ -739,8 +774,12 @@ class Tracker:
             icp_rmse=rmse, detected=True, pose_cov=cov, sigma_rot_deg=s_rot, sigma_t_mm=s_t))
 
     @torch.no_grad()
+    @traced("tracker.step")
     def step(self) -> Optional[FrameResult]:
-        """One loop iteration. Returns None when the stream ends."""
+        """One loop iteration. Returns None when the stream ends. Its
+        ``timings`` (s, on ``time.perf_counter``): ``frame`` (the fused
+        frame), or ``detect`` and ``track_step``; ``global_registration``
+        on an init."""
         if not self.initialized:
             res = self._initialize()
             if res is not None:
@@ -777,40 +816,54 @@ class Tracker:
 
         fused = self._fused
         if fused is not None:
-            t0 = time.time()
+            t0 = time.perf_counter()
             res = fused(torch.as_tensor(np.asarray(color), device=self.device),
                         self.camera.depth, T_render, conf=self.conf, icp_dist=eff_dist,
                         generator=self._gen)
-            if not bool(res.ok):
-                timings["frame"] = time.time() - t0
+            with host_read():
+                ok = bool(res.ok)
+            if not ok:
+                timings["frame"] = time.perf_counter() - t0
                 return self._lost(color, timings)
             self.errorcounter = 0
             if self._post_init:
                 self._post_init -= 1
             self._T_prev = T_cur
-            self.T_m2c = res.T.cpu().numpy()
-            timings["frame"] = time.time() - t0
-            return self._tracked(color, timings, self.T_m2c, float(res.fitness),
-                                 float(res.rmse), res.cov.cpu().numpy())
+            with host_read():
+                self.T_m2c = res.T.cpu().numpy()
+            timings["frame"] = time.perf_counter() - t0
+            return self._tracked(color, timings, self.T_m2c, *self._fit(res))
 
-        t0 = time.time()
+        t0 = time.perf_counter()
         mask = self._detect(color)
-        timings["detect"] = time.time() - t0
-        if mask is None or not bool(mask.any()):
+        timings["detect"] = time.perf_counter() - t0
+        if mask is None or not _seen(mask):
             return self._lost(color, timings)
         self.errorcounter = 0
         if self._post_init:
             self._post_init -= 1
 
-        t0 = time.time()
+        t0 = time.perf_counter()
         est = self.estimator
         tr = track_step(est._mesh_v, est._mesh_f, mask, self.camera.depth, T_render,
                         est.intr, icp_dist=eff_dist, win_hw=self._win_hw,
                         target_pts=self.target_pts, icp_variant=self.icp_variant,
                         icp_kernel=self.icp_kernel, generator=self._gen)
-        T_new = tr.T.cpu().numpy()
-        timings["track_step"] = time.time() - t0
+        with host_read():
+            T_new = tr.T.cpu().numpy()
+        timings["track_step"] = time.perf_counter() - t0
         self._T_prev = T_cur
         self.T_m2c = T_new
-        return self._tracked(color, timings, T_new, float(tr.fitness), float(tr.rmse),
-                             tr.cov.cpu().numpy())
+        return self._tracked(color, timings, T_new, *self._fit(tr))
+
+    @staticmethod
+    def _fit(res) -> tuple:
+        """``(fitness, rmse, cov)`` of a frame's result on the host, three
+        reads."""
+        with host_read():
+            fitness = float(res.fitness)
+        with host_read():
+            rmse = float(res.rmse)
+        with host_read():
+            cov = res.cov.cpu().numpy()
+        return fitness, rmse, cov

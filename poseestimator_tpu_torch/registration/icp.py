@@ -37,6 +37,7 @@ from .. import chains
 from ..geom3d.cloud import PointCloud
 from ..geom3d.knn import nearest_neighbor
 from ..geom3d.se3 import axis_angle_to_R, make_T, transform_points
+from ..utils.profiling import host_read, traced
 from .kabsch import batch_sum, kabsch, kabsch_batched, matmul_small
 
 
@@ -111,6 +112,7 @@ def icp_point_to_point(
         robust, with_cov, accel, accel_pose_tol))
 
 
+@traced("icp")
 def icp_point_to_point_program(src: PointCloud, dst: PointCloud, max_corr_dist,
                                init_T: Optional[torch.Tensor] = None,
                                max_iterations: int = 30, relative_fitness: float = 1e-6,
@@ -203,6 +205,7 @@ def icp_point_to_point_program(src: PointCloud, dst: PointCloud, max_corr_dist,
     return ICPResult(T=T, fitness=fitness, inlier_rmse=rmse, n_iters=it, cov=cov)
 
 
+@traced("icp")
 def icp_point_to_plane(
     src: PointCloud,
     dst: PointCloud,
@@ -244,8 +247,12 @@ def icp_point_to_plane(
     p, idx, inl, fitness, rmse = evaluate(T)
     prev_fitness, prev_rmse = fitness + 1.0, rmse + 1.0
     it = 0
-    while it < max_iterations and bool(((prev_fitness - fitness).abs() > relative_fitness)
-                                       | ((prev_rmse - rmse).abs() > relative_rmse)):
+    while it < max_iterations:
+        keep = (((prev_fitness - fitness).abs() > relative_fitness)
+                | ((prev_rmse - rmse).abs() > relative_rmse))
+        with host_read():
+            if not bool(keep):
+                break
         q, n = dst.points[idx], dst.normals[idx]
         r = (n * (q - p)).sum(1)  # residual n . (q - p)
         w = inl.to(f32)
@@ -285,6 +292,7 @@ class BatchedICPResult:
     n_evals: int  # batched evaluations: K1 launches on the card
 
 
+@traced("icp")
 def icp_point_to_point_batched(
     src_points: torch.Tensor,
     src_valid: torch.Tensor,
@@ -326,8 +334,10 @@ def icp_point_to_point_batched(
     while True:
         a = (it < max_iterations) & (((prev_fitness - fitness).abs() > relative_fitness)
                                      | ((prev_rmse - rmse).abs() > relative_rmse))
-        if not bool(a.any()):
-            break
+        go = a.any()
+        with host_read():
+            if not bool(go):
+                break
         R, t = kabsch_batched(pts, dst.points[idx], inl.to(f32))
         D = eye.expand(B, 4, 4).clone()
         D[:, :3, :3] = R

@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.profiling import host_read
+
 # the loop's exit flag is read back every this many steps: a step on a seed
 # without candidates changes nothing, so steps past the exit are no-ops
 _CHECK_EVERY = 8
@@ -33,8 +35,11 @@ def max_clique_greedy(adj: torch.Tensor, valid: torch.Tensor):
     cand = A.clone()
     step = 0
     while step < K:
-        if step % _CHECK_EVERY == 0 and not bool(cand.any()):
-            break
+        if step % _CHECK_EVERY == 0:
+            left = cand.any()
+            with host_read():
+                if not bool(left):
+                    break
         deg = cand.to(torch.float32) @ Af  # (..., S, K)
         pick = torch.argmax(torch.where(cand, deg, torch.full_like(deg, -1.0)), dim=-1)
         has = cand.any(-1)
@@ -74,6 +79,7 @@ def max_kcore(adj: torch.Tensor, valid: torch.Tensor):
     core = valid
     while True:
         keep = core & (degree(core) >= kstar[..., None].to(torch.float32))
-        if torch.equal(keep, core):
-            return core, kstar
+        with host_read():
+            if torch.equal(keep, core):
+                return core, kstar
         core = keep

@@ -20,6 +20,7 @@ from typing import Optional, Sequence
 import torch
 
 from ..geom3d.se3 import transform_points
+from ..utils.profiling import host_read
 from .kabsch import kabsch_batched
 
 # hypotheses scored at once: bounds the (chunk, N, 3) moved-cloud temporary
@@ -148,5 +149,9 @@ def get_correspondences(src_pts: torch.Tensor, dst_pts: torch.Tensor, match_idx:
         r = ransac_registration(src_pts, dst_pts, match_idx, match_valid,
                                 distance_threshold * f, n_iters=n_iters, generator=generator,
                                 uniforms=None if uniforms is None else uniforms[k])
-        if k == len(rungs) - 1 or int(r.n_inliers) >= 3:
+        if k == len(rungs) - 1:
+            return r
+        with host_read():
+            enough = int(r.n_inliers) >= 3
+        if enough:
             return r

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from ..geom3d.se3 import make_T, quat_to_R
+from ..utils.profiling import host_read
 from .kabsch import _davenport, _quest_q_batched, kabsch_batched
 from .maxclique import max_clique_greedy, max_kcore
 
@@ -145,8 +146,10 @@ def _gnc_tls_rotation(src_tims, dst_tims, tim_valid, params: TeaserParams,
     while True:
         active = (it < params.rotation_max_iterations) & (
             (cost - prev_cost).abs() > params.rotation_cost_threshold)
-        if not bool(active.any()):
-            break
+        go = active.any()
+        with host_read():
+            if not bool(go):
+                break
         r2 = _residual2(src_tims, dst_tims, R)
         th1 = ((mu + 1.0) / mu * eps2)[..., None]  # above: weight 0
         th2 = (mu / (mu + 1.0) * eps2)[..., None]  # below: weight 1
@@ -192,8 +195,10 @@ def _gnc_fgr_rotation(src_tims, dst_tims, tim_valid, params: TeaserParams):
     while True:
         active = (it < params.rotation_max_iterations) & (
             (mu > 1.0) | ((cost - prev_cost).abs() > params.rotation_cost_threshold))
-        if not bool(active.any()):
-            break
+        go = active.any()
+        with host_read():
+            if not bool(go):
+                break
         r2 = _residual2(src_tims, dst_tims, R)
         m = (mu * eps2)[..., None]
         w_new = (m / (r2 + m)) ** 2 * valid_f

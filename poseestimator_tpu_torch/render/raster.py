@@ -19,6 +19,7 @@ import torch
 from .. import kernels
 from ..geom3d.camera import Intrinsics
 from ..geom3d.se3 import transform_points
+from ..utils.profiling import span
 
 # inside-test slack on normalized barycentrics: shared edges land exactly on
 # both faces' boundaries and must not open cracks under rounding
@@ -181,7 +182,9 @@ def render_depth_mesh(vertices, faces, T_m2c, intr: Intrinsics, near: float = 0.
     """
     H, W = out_hw if out_hw is not None else (intr.height, intr.width)
     coef, bbox = face_coeffs(vertices, faces, T_m2c, intr, near=near, origin=origin)
-    return izmax_to_depth(raster(coef, bbox, H, W), near, far)
+    with span("k2", 1, H, W):
+        izmax = raster(coef, bbox, H, W)
+    return izmax_to_depth(izmax, near, far)
 
 
 def render_depth_mesh_batched(vertices, faces, T_m2c, intr: Intrinsics, near: float = 0.001,
@@ -193,7 +196,9 @@ def render_depth_mesh_batched(vertices, faces, T_m2c, intr: Intrinsics, near: fl
     unbatched render."""
     H, W = out_hw if out_hw is not None else (intr.height, intr.width)
     coef, bbox = face_coeffs(vertices, faces, T_m2c, intr, near=near, origin=origin)
-    return izmax_to_depth(raster_batched(coef, bbox, H, W), near, far)
+    with span("k2", T_m2c.shape[0], H, W):
+        izmax = raster_batched(coef, bbox, H, W)
+    return izmax_to_depth(izmax, near, far)
 
 
 def depth_lambert(depth: torch.Tensor, intr: Intrinsics) -> torch.Tensor:

@@ -276,8 +276,13 @@ def test_fsm_transitions_match_jax(monkeypatch, name):
 
 
 def test_metrics_logger_records_every_step(monkeypatch, tmp_path):
+    """Every step is logged with the timings its state has, taken on
+    ``time.perf_counter``: a wall clock stepped back an hour between calls
+    moves none of them."""
     sc = SCENARIOS["warm-up reset and re-init on misses"]
     monkeypatch.setattr(trk, "track_step", _scripted_step([], [], sc["motion"], False))
+    wall = iter(range(10**9, 0, -3600))
+    monkeypatch.setattr(trk.time, "time", lambda: float(next(wall)))
     logger = MetricsLogger(str(tmp_path / "m.jsonl"))
     tr = trk.Tracker(_Camera(False, sc["n_frames"]), _Estimator(False, CANDS),
                      _Detector(False, sc["hits"]), metrics=logger, device="cpu",
@@ -290,6 +295,12 @@ def test_metrics_logger_records_every_step(monkeypatch, tmp_path):
     assert s["frames"] == n == s["n_init"] + s["n_track"] + s["n_lost"]
     assert s["n_init"] == 2 and s["n_lost"] == 3
     assert len((tmp_path / "m.jsonl").read_text().splitlines()) == n
+    keys = {"init": {"global_registration"}, "track": {"detect", "track_step"},
+            "lost": {"detect"}}
+    for r in logger.records:
+        assert set(r["timings_ms"]) == keys[r["state"]], r
+        assert all(0.0 <= v < 60_000.0 for v in r["timings_ms"].values()), r
+    assert {f"{k}_ms_p95" for k in ("global_registration", "detect", "track_step")} <= set(s)
 
 
 # --- the track step's options ----------------------------------------------
